@@ -1,0 +1,159 @@
+"""The CUDA kernel wrappers of the PyTorch port on the CPU: each wrapper
+returns its plain twin's result for a CPU tensor without launching,
+building or loading anything, refuses tensors it cannot launch on, and
+the port imports with JAX unavailable."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pyorbslam_tpu_torch.ops import fast as fast_ops
+from pyorbslam_tpu_torch.ops import kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def canvas():
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(rng.integers(0, 256, (96, 160)).astype(np.float32))
+
+
+@pytest.fixture
+def keypoints():
+    rng = np.random.default_rng(1)
+    xy = np.stack([rng.integers(19, 160 - 19, 64),
+                   rng.integers(19, 96 - 19, 64)], 1).astype(np.int32)
+    ang = rng.uniform(0, 360, 64).astype(np.float32)
+    return torch.as_tensor(xy), torch.as_tensor(ang)
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fail the test if anything starts nvcc or loads a shared library."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU run tried to build or load a kernel")
+
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", refuse)
+    kernels.reset_launch_counts()
+    yield
+    assert all(k._fn is None for k in kernels.KERNELS)
+
+
+class TestCpuWrappers:
+    def test_fast_wrapper_returns_twin_without_launch(self, canvas, no_build):
+        got = kernels.fast_score_map(canvas)
+        assert torch.equal(got, fast_ops.fast_score_map(canvas))
+        assert kernels.FAST_SCORE.launches == 0
+
+    def test_brief_wrapper_returns_twin_without_launch(self, canvas, keypoints,
+                                                       no_build):
+        xy, ang = keypoints
+        got = kernels.brief_descriptors_canvas(canvas, xy, ang)
+        assert got.dtype == torch.int32 and got.shape == (64, 8)
+        assert torch.equal(got, kernels.brief_descriptors_canvas_ref(canvas, xy, ang))
+        assert kernels.BRIEF_CANVAS.launches == 0
+
+    def test_cpu_frame_build_never_builds(self, no_build):
+        from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
+        from pyorbslam_tpu_torch.io.synthetic import make_texture
+        from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
+
+        img = make_texture(256, seed=5)[:96, :192]
+        cfg = SlamConfig(camera=CameraConfig(width=192, height=96),
+                         orb=OrbConfig(n_features=300, n_levels=3))
+        frame = build_stereo_frame(torch.as_tensor(img),
+                                   torch.as_tensor(np.roll(img, -4, axis=1)), cfg)
+        assert int(frame.valid.sum()) > 50
+        assert kernels.launch_counts() == {"fast_score": 0, "brief_canvas": 0}
+
+
+class TestNoFallback:
+    @pytest.mark.parametrize("which", ["fast", "brief"])
+    def test_non_cpu_tensor_is_refused(self, which, no_build):
+        """A tensor the kernel cannot take raises: nothing falls back to
+        the twin off the CPU (the meta device stands in for a card)."""
+        meta = torch.empty((96, 160), device="meta")
+        with pytest.raises(ValueError):
+            if which == "fast":
+                kernels.fast_score_map(meta)
+            else:
+                kernels.brief_canvas_kernel(
+                    meta, torch.empty((4, 2), dtype=torch.int32, device="meta"),
+                    torch.empty(4, device="meta"), torch.empty(4, device="meta"))
+
+    def test_brief_rejects_keypoints_near_the_edge(self, canvas, keypoints):
+        xy, ang = keypoints
+        bad = xy.clone()
+        bad[3, 0] = 160 - 19
+        with pytest.raises(ValueError, match="closer than 19 px"):
+            kernels.brief_descriptors_canvas(canvas, bad, ang)
+
+
+class TestBuild:
+    def test_nvcc_command_and_source_hash(self, monkeypatch, tmp_path):
+        """The build targets sm_90a with a plain C interface, writes into
+        the build directory under a name carrying the source hash, and a
+        changed source gets a new library name."""
+        started = []
+
+        class FakeProc:
+            returncode = 0
+
+            def __init__(self, cmd, **kw):
+                started.append(cmd)
+
+            def communicate(self):
+                out = started[-1][started[-1].index("-o") + 1]
+                open(out, "w").close()
+                return "ptxas info: Used 32 registers", ""
+
+        monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+        monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(kernels.subprocess, "Popen", FakeProc)
+        src = tmp_path / "k.cu"
+        src.write_text("// v1\n")
+        k = kernels.CudaKernel("k", str(src), "k_launch", [], replaces="x:1")
+        lib1 = k.library_path
+        log = k.finish_build(k.start_build())
+        cmd = started[0]
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+        assert os.path.exists(lib1) and "registers" in log
+        assert k.start_build() is None          # up to date: no rebuild
+        src.write_text("// v2\n")
+        assert k.library_path != lib1
+
+    @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
+    def test_source_carries_its_note(self, kernel):
+        with open(kernel.source_path) as f:
+            text = f.read()
+        pallas_fn = {"fast_score": "fast_score_map_pallas",
+                     "brief_canvas": "brief_descriptors_canvas"}[kernel.name]
+        assert "Replaces the TPU kernel" in text and pallas_fn in text
+        assert "What bounds it" in text and "What the design does" in text
+        assert 'extern "C"' in text
+
+
+def test_imports_without_jax():
+    """The port and every submodule import with JAX unavailable, and none
+    of them pulls in the JAX package."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import pyorbslam_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'pyorbslam_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"
+        "               for n in sys.modules), 'JAX package imported'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
