@@ -150,8 +150,8 @@ class BaConfig:
     pose_iters_per_round: int = 10
     chi2_mono: float = 5.991
     chi2_stereo: float = 7.815
-    # the fields below configure the keyframe side, which this package
-    # does not carry yet; they keep the dataclass convertible
+    # local BA (slam/slam_map.py); the global-BA and pose-graph fields
+    # configure stages not carried yet and keep the dataclass convertible
     local_ba_iters1: int = 5
     local_ba_iters2: int = 10
     local_ba_max_move_m: float = 2.0

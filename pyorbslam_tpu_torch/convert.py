@@ -22,8 +22,10 @@ import torch
 from pyorbslam_tpu_torch.config import (
     BaConfig, CameraConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
+from pyorbslam_tpu_torch.optim.ba import BAGridProblem, BAProblem
+from pyorbslam_tpu_torch.place.vocabulary import Vocabulary
 from pyorbslam_tpu_torch.slam.frame import StereoFrame
-from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
+from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
 
 MIRROR_FIELDS = ("pos", "desc", "normal", "dmin", "dmax", "alive")
 
@@ -107,3 +109,57 @@ def landmark_mirror(store: LandmarkStore, device: torch.device
     copy, also on the CPU: later writes to the store leave it frozen."""
     return {name: torch.tensor(getattr(store, name), device=device)
             for name in MIRROR_FIELDS}
+
+
+def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """Any array (numpy or JAX) -> a tensor on ``device``; uint32 words
+    become int32 with the same bits.  A copy: a JAX array's numpy view is
+    read-only."""
+    a = np.array(a, order="C")
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a, device=device)
+
+
+def vocabulary_from_numpy(src: Any) -> Vocabulary:
+    """A JAX-side ``Vocabulary`` (numpy fields, uint32 node descriptors)
+    -> the port's (int32 words with the same bits)."""
+    return Vocabulary(
+        k=int(src.k), L=int(src.L),
+        node_desc=desc_to_port(np.asarray(src.node_desc)).copy(),
+        child_start=np.array(src.child_start, np.int32),
+        n_children=np.array(src.n_children, np.int32),
+        weight=np.array(src.weight, np.float32),
+        word_id=np.array(src.word_id, np.int32),
+        n_words=int(src.n_words))
+
+
+def ba_problem_from_numpy(src: Any, device: torch.device):
+    """A JAX ``BAProblem`` or ``BAGridProblem`` (same field names) -> the
+    port's problem on ``device``."""
+    cls = BAGridProblem if hasattr(src, "g_cam") else BAProblem
+    return cls(**{f: tensor_from_numpy(getattr(src, f), device)
+                  for f in cls._fields})
+
+
+KEYFRAME_FIELDS = ("Tcw", "frame_id", "timestamp", "alive", "kp_xy",
+                   "kp_octave", "kp_angle", "kp_node", "kp_valid", "u_right",
+                   "depth", "obs_lm")
+
+
+def keyframes_from_numpy(src: Any, capacity: int = None) -> KeyFrameStore:
+    """A JAX ``KeyFrameStore`` (numpy arrays) -> the port's store, same
+    ids and contents."""
+    store = KeyFrameStore(capacity or src.capacity, src.n_features)
+    n = src.n
+    for name in KEYFRAME_FIELDS:
+        getattr(store, name)[:n] = np.asarray(getattr(src, name))[:n]
+    store.kp_desc[:n] = desc_to_port(np.asarray(src.kp_desc)[:n])
+    store.n = n
+    return store
+
+
+def ring_from_numpy(arrays: Any, device: torch.device) -> tuple:
+    """A JAX ``DeviceKFRing.arrays`` tuple (xy, octave, desc, u_right,
+    depth, valid) -> the port's ring tensors on ``device``."""
+    return tuple(tensor_from_numpy(a, device) for a in arrays)

@@ -24,23 +24,12 @@
 // the twin computes them; the rotated offsets use __fmul_rn / __fadd_rn /
 // __fsub_rn so nvcc cannot contract them into an FMA, and __float2int_rn
 // rounds half to even like torch.round, so the offsets equal the twin's.
-// Staging each keypoint's window in shared memory is later work.
-#include <cuda_runtime.h>
+// The pattern load, the rotated offset and the ballot pack are shared with
+// brief_level.cu through brief_common.cuh.  Staging each keypoint's window
+// in shared memory is later work.
+#include "brief_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;  // keypoints per block
-
-__device__ __forceinline__ float sample(const float* __restrict__ canvas,
-                                        int wc, int x, int y,
-                                        const float* pat, int j,
-                                        float a, float b) {
-  const float px = pat[2 * j];
-  const float py = pat[2 * j + 1];
-  const int row = __float2int_rn(__fadd_rn(__fmul_rn(px, b), __fmul_rn(py, a)));
-  const int col = __float2int_rn(__fsub_rn(__fmul_rn(px, a), __fmul_rn(py, b)));
-  return canvas[(size_t)(y + row) * wc + (x + col)];
-}
 
 __global__ void brief_canvas_kernel(const float* __restrict__ canvas, int wc,
                                     const int* __restrict__ xy,
@@ -48,27 +37,15 @@ __global__ void brief_canvas_kernel(const float* __restrict__ canvas, int wc,
                                     const float* __restrict__ sinv,
                                     const float* __restrict__ pattern,
                                     int* __restrict__ out, int n) {
-  __shared__ float pat[1024];  // 512 (x, y) pattern points
-  for (int i = threadIdx.x; i < 1024; i += blockDim.x) pat[i] = pattern[i];
-  __syncthreads();
+  __shared__ float pat[brief::kPatternFloats];
+  brief::load_pattern(pat, pattern);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * kWarps + warp;
+  const int k = blockIdx.x * brief::kWarps + warp;
   if (k >= n) return;  // uniform across the warp
-  const int x = xy[2 * k];
-  const int y = xy[2 * k + 1];
-  const float a = cosv[k];
-  const float b = sinv[k];
-  unsigned int mine = 0;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const int p = 32 * w + lane;
-    const float s0 = sample(canvas, wc, x, y, pat, 2 * p, a, b);
-    const float s1 = sample(canvas, wc, x, y, pat, 2 * p + 1, a, b);
-    const unsigned int word = __ballot_sync(0xffffffffu, s0 < s1);
-    if (lane == w) mine = word;
-  }
+  const unsigned int mine = brief::warp_descriptor(
+      canvas, wc, xy[2 * k], xy[2 * k + 1], pat, cosv[k], sinv[k], lane);
   if (lane < 8) out[8 * k + lane] = static_cast<int>(mine);
 }
 
@@ -80,8 +57,8 @@ extern "C" int brief_canvas_launch(const float* canvas, int wc, const int* xy,
                                    const float* pattern, int* out, int n,
                                    void* stream) {
   if (n == 0) return 0;
-  dim3 block(32 * kWarps);
-  dim3 grid((n + kWarps - 1) / kWarps);
+  dim3 block(32 * brief::kWarps);
+  dim3 grid((n + brief::kWarps - 1) / brief::kWarps);
   brief_canvas_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       canvas, wc, xy, cosv, sinv, pattern, out, n);
   return static_cast<int>(cudaGetLastError());

@@ -6,6 +6,11 @@ level contributes exactly its geometric feature budget worth of
 (possibly invalid) slots.  This is the ``OrbConfig.use_atlas=False``
 path; the default path is the whole-canvas extraction of
 :mod:`pyorbslam_tpu_torch.ops.atlas`.
+
+Per level, the corner scores come from ``kernels.fast_score_map`` and the
+descriptors from ``kernels.brief_descriptors_level``: on CUDA tensors the
+hand-written ``fast_score`` and ``brief_level`` kernels (16 launches of
+each per stereo frame at 8 levels), on CPU tensors their plain twins.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 
 from pyorbslam_tpu_torch.config import OrbConfig
 from pyorbslam_tpu_torch.ops import fast as fast_ops
+from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 
@@ -59,7 +65,8 @@ def extract_features(img: torch.Tensor, orb: OrbConfig,
 
     all_xy, all_resp, all_ang, all_oct, all_desc, all_valid = [], [], [], [], [], []
     for l, level_img in enumerate(levels):
-        score = fast_ops.fast_score_map(level_img)
+        level_img = level_img.contiguous()
+        score = kernels.fast_score_map(level_img)
         score = fast_ops.border_mask(score, DETECT_BORDER)
         score = fast_ops.cell_fallback_mask(
             score, float(orb.ini_th_fast), float(orb.min_th_fast), orb.cell_size
@@ -73,7 +80,7 @@ def extract_features(img: torch.Tensor, orb: OrbConfig,
         ang = desc_ops.ic_angle_from_maps(m10_map, m01_map, xy)
         blurred = pyr_ops.gaussian_blur(level_img)
         padded_blur = pyr_ops.reflect_pad(blurred, desc_ops.BORDER)
-        d = desc_ops.brief_descriptors(padded_blur, xy, ang)
+        d = kernels.brief_descriptors_level(padded_blur.contiguous(), xy, ang)
 
         s = torch.tensor(float(scale_factors[l]), dtype=torch.float32,
                          device=img.device)

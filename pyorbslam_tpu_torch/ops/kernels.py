@@ -1,19 +1,25 @@
 """Hand-written CUDA kernels for Hopper, their wrappers, launch counters
 and plain twins.
 
-Two kernels carry the per-frame frontend; both replace the Pallas
-kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
+Three kernels carry the per-frame frontend; they replace the three
+Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
 
 * ``fast_score`` (``csrc/fast_score.cu``), FAST-9/16 corner strength over
-  the atlas canvas.  Twin: :func:`pyorbslam_tpu_torch.ops.fast.fast_score_map`.
+  the atlas canvas or one pyramid level.  Twin:
+  :func:`pyorbslam_tpu_torch.ops.fast.fast_score_map`.
 * ``brief_canvas`` (``csrc/brief_canvas.cu``), steered rBRIEF on the
-  blurred canvas.  Twin: :func:`brief_descriptors_canvas_ref`.
+  blurred canvas (``OrbConfig.use_atlas=True``).  Twin:
+  :func:`brief_descriptors_canvas_ref`.
+* ``brief_level`` (``csrc/brief_level.cu``), steered rBRIEF on one level's
+  reflect-padded blurred image (``use_atlas=False``).  Twin:
+  :func:`pyorbslam_tpu_torch.ops.orb_descriptor.brief_descriptors`.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use (or through :func:`build_kernels`), from the sources in this
 package only, into ``pyorbslam_tpu_torch/_build/``; a library's file name
-carries the hash of its source, so an edited source is rebuilt.
+carries the hash of its source and of the shared ``csrc/*.cuh`` headers,
+so an edited source is rebuilt.
 
 A wrapper takes its twin only for a tensor on the CPU.  For a CUDA
 tensor it launches the kernel on the current stream or raises; there is
@@ -24,6 +30,7 @@ kernel's launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -74,8 +81,12 @@ class CudaKernel:
 
     @property
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in [self.source_path,
+                     *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         return os.path.join(BUILD_DIR, f"{self.name}_{digest}.so")
 
     def start_build(self) -> "subprocess.Popen | None":
@@ -133,7 +144,13 @@ BRIEF_CANVAS = CudaKernel(
     [_P, _I, _P, _P, _P, _P, _P, _I, _P],
     replaces="pyorbslam_tpu/ops/pallas_kernels.py:327",
 )
-KERNELS: List[CudaKernel] = [FAST_SCORE, BRIEF_CANVAS]
+BRIEF_LEVEL = CudaKernel(
+    "brief_level", "pyorbslam_tpu_torch/csrc/brief_level.cu",
+    "brief_level_launch",
+    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    replaces="pyorbslam_tpu/ops/pallas_kernels.py:206",
+)
+KERNELS: List[CudaKernel] = [FAST_SCORE, BRIEF_CANVAS, BRIEF_LEVEL]
 
 
 def build_kernels() -> Dict[str, str]:
@@ -197,12 +214,27 @@ def _check_brief_bounds(canvas: torch.Tensor, xy: torch.Tensor) -> None:
             f"{BRIEF_REACH} px to the edge of the {hc}x{wc} canvas")
 
 
+def _brief_gather(image: torch.Tensor, xy: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, border: int) -> torch.Tensor:
+    """Sampling body of both rBRIEF twins: rotated offsets, one gather
+    from ``image`` (whose keypoint coordinates are shifted by ``border``),
+    pair compare and bit pack."""
+    rows, cols = desc_ops.rotated_offsets_cs(cos, sin)
+    samp = desc_ops.gather_patches(image, xy, rows, cols, border=border)
+    return desc_ops.pack_bits(samp[:, 0::2] < samp[:, 1::2])
+
+
 def brief_canvas_gather(blur_canvas: torch.Tensor, xy: torch.Tensor,
                         cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Sampling body of the twin: rotated offsets, one gather, bit pack."""
-    rows, cols = desc_ops.rotated_offsets_cs(cos, sin)
-    samp = desc_ops.gather_patches(blur_canvas, xy, rows, cols, border=0)
-    return desc_ops.pack_bits(samp[:, 0::2] < samp[:, 1::2])
+    """The brief_canvas twin after its cos and sin (canvas coordinates)."""
+    return _brief_gather(blur_canvas, xy, cos, sin, border=0)
+
+
+def brief_level_gather(padded_blurred: torch.Tensor, xy: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The brief_level twin after its cos and sin: the arithmetic of
+    ``orb_descriptor.brief_descriptors`` on a level padded by ``BORDER``."""
+    return _brief_gather(padded_blurred, xy, cos, sin, border=desc_ops.BORDER)
 
 
 @lru_cache(maxsize=4)
@@ -251,3 +283,50 @@ def brief_descriptors_canvas(
     _check_brief_bounds(blur_canvas, xy)
     cos, sin = desc_ops.cos_sin(angle_deg)
     return brief_canvas_kernel(blur_canvas, xy, cos.contiguous(), sin.contiguous())
+
+
+def _check_level_bounds(padded_blurred: torch.Tensor, xy: torch.Tensor) -> None:
+    """Raise unless every keypoint lies inside its level: the pad is
+    ``BORDER`` = 19 px and the rotated pattern reaches 19, so a keypoint
+    anywhere in the level keeps all 512 samples on the padded image.
+    (``select_keypoints`` fills invalid slots with in-level pixels too.)"""
+    if xy.shape[0] == 0:
+        return
+    h = padded_blurred.shape[0] - 2 * desc_ops.BORDER
+    w = padded_blurred.shape[1] - 2 * desc_ops.BORDER
+    out = ((xy < 0).any() | (xy[:, 0] >= w).any() | (xy[:, 1] >= h).any())
+    if bool(out):
+        raise ValueError(
+            f"brief_descriptors_level: a keypoint lies outside the {h}x{w} level")
+
+
+def brief_level_kernel(padded_blurred: torch.Tensor, xy: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Launch the brief_level kernel on CUDA tensors (no bounds check:
+    callers go through :func:`brief_descriptors_level`)."""
+    dev = padded_blurred.device
+    n = xy.shape[0]
+    _check_cuda(padded_blurred, "padded_blurred", torch.float32, (None, None), dev)
+    _check_cuda(xy, "xy", torch.int32, (n, 2), dev)
+    _check_cuda(cos, "cos", torch.float32, (n,), dev)
+    _check_cuda(sin, "sin", torch.float32, (n,), dev)
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    BRIEF_LEVEL.launch(
+        dev, padded_blurred.data_ptr(), padded_blurred.shape[1], desc_ops.BORDER,
+        xy.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        _pattern_on(dev).data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def brief_descriptors_level(
+    padded_blurred: torch.Tensor, xy: torch.Tensor, angle_deg: torch.Tensor
+) -> torch.Tensor:
+    """Steered rBRIEF on one level: padded_blurred (H + 38, W + 38) float32
+    (reflect pad of ``BORDER``), xy (N, 2) int32 level coords, angle (N,)
+    degrees -> (N, 8) int32 words.  The CUDA kernel for CUDA tensors, the
+    twin ``orb_descriptor.brief_descriptors`` for CPU tensors."""
+    if padded_blurred.device.type == "cpu":
+        return desc_ops.brief_descriptors(padded_blurred, xy, angle_deg)
+    _check_level_bounds(padded_blurred, xy)
+    cos, sin = desc_ops.cos_sin(angle_deg)
+    return brief_level_kernel(padded_blurred, xy, cos.contiguous(), sin.contiguous())

@@ -199,8 +199,10 @@ def brief_descriptors(
     padded_blurred: torch.Tensor, xy: torch.Tensor, angle_deg: torch.Tensor
 ) -> torch.Tensor:
     """Steered 256-bit BRIEF on a reflect-padded blurred level -> (N, 8)
-    int32 words.  Plain twin of the JAX package's
-    ``brief_descriptors_pallas`` (K3, not ported yet)."""
+    int32 words.  Plain twin of the ``brief_level`` CUDA kernel
+    (``csrc/brief_level.cu``, the port of the JAX package's
+    ``brief_descriptors_pallas``); the per-level extractor reaches it
+    through ``kernels.brief_descriptors_level`` on CPU tensors."""
     rows, cols = rotated_offsets(angle_deg)
     vals = gather_patches(padded_blurred, xy, rows, cols)  # (N, 512)
     return pack_bits(vals[:, 0::2] < vals[:, 1::2])

@@ -1,10 +1,10 @@
-"""Fixed-capacity SoA landmark store on the host.
+"""Fixed-capacity SoA landmark and keyframe stores on the host.
 
-Port of ``LandmarkStore`` from ``pyorbslam_tpu/slam/mapstore.py``
-(reference: MapPoint.py): landmark state lives in preallocated numpy
-arrays, single writer, and the slices a device step needs are uploaded
-per call.  Descriptors are int32 words with the JAX package's uint32
-bits.  Exceeding the capacity raises.
+Port of ``pyorbslam_tpu/slam/mapstore.py`` (reference: MapPoint.py,
+KeyFrame.py, Map.py): map state lives in preallocated numpy arrays,
+single writer, and the slices a device step needs are uploaded per call.
+Descriptors are int32 words with the JAX package's uint32 bits.
+Exceeding a capacity raises.
 """
 
 from __future__ import annotations
@@ -35,6 +35,22 @@ class LandmarkStore:
         self.ref_kf = np.full(c, -1, np.int32)
         self.alive = np.zeros(c, bool)
         self.replaced_by = np.full(c, -1, np.int32)    # MapPoint.replace forwarding
+        # ids whose device-mirrored fields (pos/desc/normal/dmin/dmax/
+        # alive) were written since the last drain: every writer calls
+        # mark_dirty so the device mirror can delta-update without an
+        # O(capacity) field scan per refresh
+        self._dirty_chunks: list = []
+
+    def mark_dirty(self, ids: np.ndarray):
+        if len(ids):
+            self._dirty_chunks.append(np.asarray(ids, np.int32))
+
+    def drain_dirty(self) -> np.ndarray:
+        if not self._dirty_chunks:
+            return np.empty(0, np.int32)
+        out = np.unique(np.concatenate(self._dirty_chunks))
+        self._dirty_chunks = []
+        return out
 
     def add(
         self,
@@ -68,6 +84,9 @@ class LandmarkStore:
         self.normal[ids] = normal
         self.dmin[ids] = 0.8 * min_dist
         self.dmax[ids] = 1.2 * max_dist
+        # n_obs starts at 0: observation registration (the native core's
+        # add_keyframe / add_observation(s)) is the single counter, with
+        # stereo observations counting 2 (MapPoint.py:98-107)
         self.n_obs[ids] = 0
         self.visible[ids] = 1
         self.found[ids] = 1
@@ -75,6 +94,7 @@ class LandmarkStore:
         self.ref_kf[ids] = ref_kf
         self.alive[ids] = True
         self.n += k
+        self.mark_dirty(ids)
         return ids
 
     def resolve(self, ids: np.ndarray) -> np.ndarray:
@@ -86,3 +106,56 @@ class LandmarkStore:
                 break
             ids[mask] = self.replaced_by[ids[mask]]
         return ids
+
+
+@dataclasses.dataclass
+class KeyFrameStore:
+    """Keyframe poses + per-keyframe feature data + observation table.
+
+    The observation structure is dense per keyframe: ``obs_lm[k, i]`` is
+    the landmark id observed by feature slot i of keyframe k (-1 = none),
+    the array form of MapPoint.observations / KeyFrame.mvpMapPoints.
+    """
+
+    capacity: int
+    n_features: int
+    n: int = 0
+
+    def __post_init__(self):
+        c, f = self.capacity, self.n_features
+        self.Tcw = np.tile(np.eye(4, dtype=np.float32), (c, 1, 1))
+        self.frame_id = np.full(c, -1, np.int64)
+        self.timestamp = np.zeros(c, np.float64)
+        self.alive = np.zeros(c, bool)
+        # per-KF feature blocks (copied once from the device frame)
+        self.kp_xy = np.zeros((c, f, 2), np.float32)
+        self.kp_octave = np.zeros((c, f), np.int32)
+        self.kp_angle = np.zeros((c, f), np.float32)
+        self.kp_desc = np.zeros((c, f, 8), np.int32)
+        self.kp_node = np.full((c, f), -1, np.int32)   # vocab node (BoW matching)
+        self.kp_valid = np.zeros((c, f), bool)
+        self.u_right = np.full((c, f), -1.0, np.float32)
+        self.depth = np.full((c, f), -1.0, np.float32)
+        self.obs_lm = np.full((c, f), -1, np.int32)
+
+    def add(self, Tcw, frame_id, timestamp, kp_xy, kp_octave, kp_angle,
+            kp_desc, kp_valid, u_right, depth, obs_lm, kp_node=None) -> int:
+        if self.n >= self.capacity:
+            raise RuntimeError(f"KeyFrameStore capacity {self.capacity} exceeded")
+        k = self.n
+        self.Tcw[k] = Tcw
+        self.frame_id[k] = frame_id
+        self.timestamp[k] = timestamp
+        self.alive[k] = True
+        self.kp_xy[k] = kp_xy
+        self.kp_octave[k] = kp_octave
+        self.kp_angle[k] = kp_angle
+        self.kp_desc[k] = kp_desc
+        if kp_node is not None:
+            self.kp_node[k] = kp_node
+        self.kp_valid[k] = kp_valid
+        self.u_right[k] = u_right
+        self.depth[k] = depth
+        self.obs_lm[k] = obs_lm
+        self.n += 1
+        return k

@@ -422,6 +422,24 @@ def fused_track_chain_step(
     return row, frame
 
 
+def kf_snapshot(
+    frame: StereoFrame, voc_arrays,
+    voc_k: int, voc_L: int, voc_levels_up: int,
+) -> torch.Tensor:
+    """Everything keyframe insertion needs from a device-resident frame,
+    in ONE packed read: the host feature snapshot (pack_frame) plus the
+    BoW word/weight/node vectors from the vocabulary tree descent
+    (Frame.compute_BoW, TemplatedVocabulary.transform:108-161).  Layout:
+      [pack_frame 16N | word N | weight bits N | node N]."""
+    from pyorbslam_tpu_torch.place.vocabulary import _transform_packed
+    from pyorbslam_tpu_torch.slam.frame import pack_frame
+
+    return torch.cat([
+        pack_frame(frame),
+        _transform_packed(frame.desc, *voc_arrays, voc_k, voc_L, voc_levels_up),
+    ])
+
+
 @dataclasses.dataclass
 class Tracker:
     """Host orchestrator for the tracking-only (visual odometry) pipeline.

@@ -27,6 +27,7 @@ from pyorbslam_tpu.ops import pyramid as jpyr
 from pyorbslam_tpu.ops import stereo as jstereo
 from pyorbslam_tpu.ops.pallas_kernels import (
     brief_descriptors_canvas as pallas_brief_canvas,
+    brief_descriptors_pallas,
     fast_score_map_pallas,
 )
 from pyorbslam_tpu.slam import frame as jframe
@@ -46,6 +47,11 @@ from pyorbslam_tpu_torch.ops import stereo as tstereo
 from pyorbslam_tpu_torch.slam import frame as tframe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The whole test run has six workers on eight cores: with torch's default of
+# one thread per core the workers contend, and the port's files run many
+# times slower there than alone.
+torch.set_num_threads(2)
 
 
 def T(a):
@@ -248,6 +254,54 @@ class TestBriefTwin:
             jpyr.reflect_pad(jnp.asarray(img), 19), jnp.asarray(xy), jnp.asarray(ang)))
         got = tdesc.brief_descriptors(tpyr.reflect_pad(T(img), 19), T(xy), T(ang))
         np.testing.assert_array_equal(convert.desc_from_port(N(got)), ref)
+
+
+    @pytest.mark.parametrize("values", ["float", "u8"])
+    def test_level_wrapper_equals_jax_and_pallas(self, values):
+        """K3's wrapper on the CPU (its twin) against the function the JAX
+        per-level extractor calls, and against the TPU kernel it replaces
+        run in interpret mode, on a blurred level that is NOT rounded to
+        u8 ("float") and on a u8-valued one: every word equal given the
+        same angles.  Keypoints lie >= 16 px inside the level, where the
+        extractor puts them (DETECT_BORDER); the Pallas kernel's aligned
+        window start goes negative for a keypoint within 3 px of the top
+        edge and its words are then wrong, which the extractor never
+        asks of it."""
+        rng = np.random.default_rng(12)
+        img = rng.uniform(0.0, 255.0, (120, 200)).astype(np.float32)
+        if values == "u8":
+            img = np.round(img)
+        n = 64
+        xy = np.stack([rng.integers(16, 200 - 16, n),
+                       rng.integers(16, 120 - 16, n)], 1).astype(np.int32)
+        xy[:4] = [[16, 16], [200 - 17, 16], [16, 120 - 17], [200 - 17, 120 - 17]]
+        ang = rng.uniform(0.0, 360.0, n).astype(np.float32)
+        ang[:4] = [0.0, 90.0, 180.0, 359.99]
+        padded = jpyr.reflect_pad(jnp.asarray(img), 19)
+        got = convert.desc_from_port(N(kernels.brief_descriptors_level(
+            tpyr.reflect_pad(T(img), 19), T(xy), T(ang))))
+        ref = np.asarray(jdesc.brief_descriptors(
+            padded, jnp.asarray(xy), jnp.asarray(ang)))
+        pallas = np.asarray(brief_descriptors_pallas(
+            padded, jnp.asarray(xy), jnp.asarray(ang), interpret=True))
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, pallas)
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+    def test_level_wrapper_takes_border_keypoints(self):
+        """Any pixel of the level is a legal keypoint for the wrapper (the
+        pad is 19, the pattern reaches 19): invalid slots of
+        select_keypoints sit at the level's first pixels."""
+        rng = np.random.default_rng(13)
+        img = rng.uniform(0.0, 255.0, (60, 90)).astype(np.float32)
+        xy = np.array([[0, 0], [89, 0], [0, 59], [89, 59], [1, 0]], np.int32)
+        ang = rng.uniform(0.0, 360.0, 5).astype(np.float32)
+        got = convert.desc_from_port(N(kernels.brief_descriptors_level(
+            tpyr.reflect_pad(T(img), 19), T(xy), T(ang))))
+        ref = np.asarray(jdesc.brief_descriptors(
+            jpyr.reflect_pad(jnp.asarray(img), 19), jnp.asarray(xy),
+            jnp.asarray(ang)))
+        np.testing.assert_array_equal(got, ref)
 
 
 class TestOrientation:

@@ -13,6 +13,8 @@ import torch
 
 from pyorbslam_tpu_torch.ops import fast as fast_ops
 from pyorbslam_tpu_torch.ops import kernels
+from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
+from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,22 +61,45 @@ class TestCpuWrappers:
         assert torch.equal(got, kernels.brief_descriptors_canvas_ref(canvas, xy, ang))
         assert kernels.BRIEF_CANVAS.launches == 0
 
-    def test_cpu_frame_build_never_builds(self, no_build):
+    def test_level_brief_wrapper_returns_twin_without_launch(self, canvas,
+                                                             keypoints, no_build):
+        xy, ang = keypoints
+        padded = pyr_ops.reflect_pad(canvas, desc_ops.BORDER)
+        got = kernels.brief_descriptors_level(padded, xy, ang)
+        assert got.dtype == torch.int32 and got.shape == (64, 8)
+        assert torch.equal(got, desc_ops.brief_descriptors(padded, xy, ang))
+        cos, sin = desc_ops.cos_sin(ang)
+        assert torch.equal(got, kernels.brief_level_gather(padded, xy, cos, sin))
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+    @pytest.mark.parametrize("use_atlas", [True, False])
+    def test_cpu_frame_build_never_builds(self, no_build, use_atlas):
         from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
         from pyorbslam_tpu_torch.io.synthetic import make_texture
         from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
 
         img = make_texture(256, seed=5)[:96, :192]
         cfg = SlamConfig(camera=CameraConfig(width=192, height=96),
-                         orb=OrbConfig(n_features=300, n_levels=3))
+                         orb=OrbConfig(n_features=300, n_levels=3,
+                                       use_atlas=use_atlas))
         frame = build_stereo_frame(torch.as_tensor(img),
                                    torch.as_tensor(np.roll(img, -4, axis=1)), cfg)
         assert int(frame.valid.sum()) > 50
-        assert kernels.launch_counts() == {"fast_score": 0, "brief_canvas": 0}
+        assert kernels.launch_counts() == {
+            "fast_score": 0, "brief_canvas": 0, "brief_level": 0}
+
+    def test_registry_lists_three_kernels(self):
+        assert [k.name for k in kernels.KERNELS] == [
+            "fast_score", "brief_canvas", "brief_level"]
+        assert [k.replaces.rsplit(":", 1)[1] for k in kernels.KERNELS] == [
+            "83", "327", "206"]
+        for k in kernels.KERNELS:
+            assert os.path.exists(k.source_path)
+            assert os.path.dirname(k.library_path) == kernels.BUILD_DIR
 
 
 class TestNoFallback:
-    @pytest.mark.parametrize("which", ["fast", "brief"])
+    @pytest.mark.parametrize("which", ["fast", "brief", "brief_level"])
     def test_non_cpu_tensor_is_refused(self, which, no_build):
         """A tensor the kernel cannot take raises: nothing falls back to
         the twin off the CPU (the meta device stands in for a card)."""
@@ -83,9 +108,27 @@ class TestNoFallback:
             if which == "fast":
                 kernels.fast_score_map(meta)
             else:
-                kernels.brief_canvas_kernel(
+                launch = (kernels.brief_canvas_kernel if which == "brief"
+                          else kernels.brief_level_kernel)
+                launch(
                     meta, torch.empty((4, 2), dtype=torch.int32, device="meta"),
                     torch.empty(4, device="meta"), torch.empty(4, device="meta"))
+
+    def test_level_brief_rejects_keypoints_outside_the_level(self, canvas,
+                                                             keypoints):
+        """The bounds check the CUDA path runs before it launches."""
+        xy, _ = keypoints
+        padded = pyr_ops.reflect_pad(canvas, desc_ops.BORDER)
+        kernels._check_level_bounds(padded, xy)
+        edge = xy.clone()
+        edge[0] = torch.tensor([159, 95])
+        edge[1] = torch.tensor([0, 0])
+        kernels._check_level_bounds(padded, edge)     # any level pixel is legal
+        for bad_xy in ([160, 10], [10, 96], [-1, 5]):
+            bad = xy.clone()
+            bad[3] = torch.tensor(bad_xy)
+            with pytest.raises(ValueError, match="outside the 96x160 level"):
+                kernels._check_level_bounds(padded, bad)
 
     def test_brief_rejects_keypoints_near_the_edge(self, canvas, keypoints):
         xy, ang = keypoints
@@ -118,6 +161,7 @@ class TestBuild:
         monkeypatch.setattr(kernels.subprocess, "Popen", FakeProc)
         src = tmp_path / "k.cu"
         src.write_text("// v1\n")
+        monkeypatch.setattr(kernels, "CSRC_DIR", str(tmp_path))
         k = kernels.CudaKernel("k", str(src), "k_launch", [], replaces="x:1")
         lib1 = k.library_path
         log = k.finish_build(k.start_build())
@@ -127,17 +171,42 @@ class TestBuild:
         assert os.path.exists(lib1) and "registers" in log
         assert k.start_build() is None          # up to date: no rebuild
         src.write_text("// v2\n")
-        assert k.library_path != lib1
+        lib2 = k.library_path
+        assert lib2 != lib1
+        # a shared header is part of the hash too
+        (tmp_path / "common.cuh").write_text("// h\n")
+        assert k.library_path != lib2
 
     @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
     def test_source_carries_its_note(self, kernel):
         with open(kernel.source_path) as f:
             text = f.read()
         pallas_fn = {"fast_score": "fast_score_map_pallas",
-                     "brief_canvas": "brief_descriptors_canvas"}[kernel.name]
+                     "brief_canvas": "brief_descriptors_canvas",
+                     "brief_level": "brief_descriptors_pallas"}[kernel.name]
         assert "Replaces the TPU kernel" in text and pallas_fn in text
         assert "What bounds it" in text and "What the design does" in text
         assert 'extern "C"' in text
+
+
+@pytest.mark.cuda
+def test_level_brief_kernel_equals_twin_on_the_card():
+    """Needs a CUDA device (run with ``pytest -m cuda`` on a GPU machine;
+    ``python3 chip_smoke.py`` makes the same check at the path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the brief_level kernel runs only on a card")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.uniform(0, 255, (96, 160)).astype(np.float32), device=dev)
+    xy = torch.as_tensor(np.stack([rng.integers(0, 160, 200),
+                                   rng.integers(0, 96, 200)], 1).astype(np.int32),
+                         device=dev)
+    ang = torch.as_tensor(rng.uniform(0, 360, 200).astype(np.float32), device=dev)
+    padded = pyr_ops.reflect_pad(img, desc_ops.BORDER).contiguous()
+    before = kernels.BRIEF_LEVEL.launches
+    got = kernels.brief_descriptors_level(padded, xy, ang)
+    assert kernels.BRIEF_LEVEL.launches == before + 1
+    assert torch.equal(got, desc_ops.brief_descriptors(padded, xy, ang))
 
 
 def test_imports_without_jax():
@@ -147,8 +216,14 @@ def test_imports_without_jax():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import pyorbslam_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'pyorbslam_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pyorbslam_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "want = ['slam.system', 'slam.slam_map', 'slam.local_mapping', 'slam.kf_ring',\n"
+        "        'optim.ba', 'ops.triangulation', 'place.vocabulary', 'place.keyframe_db',\n"
+        "        'native.mapcore_ffi']\n"
+        "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
+        "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"
         "               for n in sys.modules), 'JAX package imported'\n"
         "print('ok')\n"

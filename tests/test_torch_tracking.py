@@ -28,6 +28,10 @@ from pyorbslam_tpu_torch.optim import pose_opt as tpose
 from pyorbslam_tpu_torch.slam import tracking as ttrack
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse, rpe
 
+# The whole test run has six workers on eight cores: with torch's default of
+# one thread per core the workers contend, and the port's files run many
+# times slower there than alone.
+torch.set_num_threads(2)
 CPU = torch.device("cpu")
 ROT_TOL = 1e-4      # rad
 TRANS_TOL = 1e-3    # m
