@@ -1,21 +1,42 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 1. Device and build: refuses to run without CUDA, turns TF32 off, prints
    the card's name and power limit, builds the three CUDA kernels from
    ``pyorbslam_tpu_torch/csrc`` (one nvcc each, started together) and
-   the native map core, and prints the build time.
-2. Kernels against their plain twins at the paths' own shapes: the FAST
-   kernel on the 4224x1279 atlas canvas of a 1241x376 stereo frame and on
-   level 0 (max |diff| must be 0), the canvas rBRIEF kernel on that
-   frame's 4000 kept keypoints and the per-level rBRIEF kernel on level 0
-   and on the smallest level with each level's own keypoints (every word
-   equal); each timed with CUDA events beside its twin and beside its
-   bound.  The whole GPU frame of either configuration (``use_atlas``
-   True and False) is also held against the same frame built on the CPU,
-   where the twins run.
+   the native map core, and prints the build time and each kernel's
+   registers, shared memory and spills.
+2. Kernels against their plain twins at the paths' own shapes.  The FAST
+   kernel on the 4224x1279 atlas canvas of a 1241x376 stereo frame, on
+   each of the frame's 16 level images singly and through the one
+   multi-image launch, and on awkward shapes (an image smaller than a
+   halo, one column, one row, sizes just off a vector and a tile): max
+   |diff| must be 0.  The canvas rBRIEF kernel on that frame's 4000 kept
+   keypoints; the per-level rBRIEF kernel on level 0, on the smallest
+   level, on the frame's 16 images in one launch with each level's own
+   keypoints, and with corner keypoints and an image without keypoints in
+   the list: every word equal.  Each kernel is timed three ways beside its
+   twin and its bound: one launch between two CUDA events (``ms``), a
+   stream of launches (``stream_ms``, the host's enqueue rate where that is
+   the slower) and launches replayed from a CUDA graph (``graph_ms``, the
+   card's own time).  Every one of these clocks times the kernel's launch
+   function (``kernels.*_kernel``: argument checks, output allocation,
+   image table, launch) on prepared inputs, and the twin's ``plain_ms`` is
+   taken on the same inputs.  fast_score's and brief_canvas' records are
+   taken on the canvas, brief_level's on the frame's 16 images in one
+   launch: the shapes their paths launch.  For fast_score and brief_level
+   the frame's one launch also stands under ``frame_ms``,
+   ``frame_graph_ms``, ``frame_plain_ms`` and ``frame_bound_ms``, beside
+   one launch an image (``frame_singles_ms``, ``frame_singles_graph_ms``)
+   and the public wrapper in a stream (``frame_wrapper_ms``; for
+   brief_level it adds cos and sin, three concatenations and the bounds
+   check's host read).
+   With ``--kernels-only`` the script renders a 2-frame sequence of the
+   same size and stops here.  The whole GPU frame of either configuration
+   (``use_atlas`` True and False) is also held against the same frame
+   built on the CPU, where the twins run.
 3. ``Tracker`` (tracking only) over the 34-frame 1241x376 synthetic
    sequence with 2000 ORB features and 8 levels; the atlas path's kernels
    must have launched at least once per frame, every pose must be finite,
@@ -25,14 +46,15 @@
    the tracker's first frame.
 5. The main path: ``System.track_stereo`` over the same 34 frames in the
    default configuration (``use_atlas=True``, loop closing off): every
-   pose finite, every frame ``OK``, drift under 2.5%, more than one
-   keyframe, local BA ran, the maintenance step created landmarks, the
-   fast_score and brief_canvas kernels launched at least once per frame.
-   Prints frames/s and the stage times of ``System.times``.
+   pose finite, every frame ``OK``, drift under 2.5%, 12 keyframes, local
+   BA ran, the maintenance step triangulated 2712 landmarks, the
+   fast_score and brief_canvas kernels launched exactly once per frame,
+   brief_level not at all.  Prints frames/s and the stage times of
+   ``System.times``.
 6. The per-level configuration (``use_atlas=False``) through ``System``
-   over the first 12 frames: the same requirements, fast_score and
-   brief_level launched at least 16 times per frame, brief_canvas not at
-   all.
+   over the first 12 frames: the same requirements (5 keyframes, 859
+   triangulated), fast_score and brief_level launched exactly once per
+   frame, brief_canvas not at all.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -42,6 +64,7 @@ that the per-kernel JSON record.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -59,10 +82,11 @@ from pyorbslam_tpu_torch.ops import atlas, fast, kernels
 from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
-from pyorbslam_tpu_torch.ops.extractor import DETECT_BORDER
+from pyorbslam_tpu_torch.ops.extractor import level_keypoints
 from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
 from pyorbslam_tpu_torch.slam.system import System
 from pyorbslam_tpu_torch.slam.tracking import Tracker, fused_track_chain_step
+from pyorbslam_tpu_torch.tools.timing import time_graph_ms, time_ms, time_stream_ms
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -72,19 +96,21 @@ WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
 MAX_WEAK = 3
-TIMING_REPS = 25
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 rate and the
 # float32 rate outside the tensor cores.  The bounds below are stated
 # against these, with the card's power limit printed beside them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# Arithmetic of the kernels, counted from their plain twins.  FAST per
-# pixel: 16 circle differences, 16 negations for the dark polarity, per
-# polarity 32 + 32 minimums and a 15-step maximum, one maximum of the two
-# and one clamp.  rBRIEF per sample: 4 multiplies, 2 adds, 2 roundings and
-# 3 integer ops for the address; per pair one comparison.
-FAST_OPS_PER_PIXEL = 16 + 16 + 2 * (32 + 32 + 15) + 2
+# Arithmetic of the kernels in the least form that gives the twins' values.
+# FAST per pixel: rounding is monotone, so the arc searches run on the raw
+# circle pixels (per polarity 32 + 32 two-input minimums and a 15-step
+# maximum, 79 operations) and the centre is subtracted once per polarity; one
+# negation for the dark polarity, one maximum of the two and one clamp.  (With
+# three-input min/max the count halves and the bytes govern the bound.)
+# rBRIEF per sample: 4 multiplies, 2 adds, 2 roundings and 3 integer ops for
+# the address; per pair one comparison.
+FAST_OPS_PER_PIXEL = 2 * (32 + 32 + 15) + 2 + 1 + 2
 BRIEF_OPS_PER_KEYPOINT = 512 * 11 + 256
 
 
@@ -104,8 +130,8 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_sequence():
-    seq = generate_sequence(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT,
+def make_sequence(n_frames: int = N_FRAMES):
+    seq = generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
                             trajectory="straight", speed=0.8, seed=3)
     cfg = SlamConfig(
         camera=CameraConfig(
@@ -116,24 +142,6 @@ def make_sequence():
         orb=OrbConfig(n_features=N_FEATURES),
     )
     return seq, cfg
-
-
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median device time of one call, CUDA events around each call,
-    after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -158,69 +166,179 @@ def brief_bound(n: int) -> dict:
                         n * BRIEF_OPS_PER_KEYPOINT)
 
 
-def record(kernel, err, ms, plain_ms, bound, shape) -> dict:
+def clocks(fn) -> dict:
+    """The three clocks of one kernel call: one bracketed launch, a stream
+    of launches, launches replayed from a CUDA graph."""
+    return dict(ms=time_ms(fn), stream_ms=time_stream_ms(fn),
+                graph_ms=time_graph_ms(fn))
+
+
+def record(kernel, err, times, plain_ms, bound, shape) -> dict:
     # library_ms: no single PyTorch call computes FAST-9 or steered rBRIEF
     return dict(name=kernel.name, route="cuda", source=kernel.source,
-                replaces=kernel.replaces, max_abs_err=err, ms=ms,
+                replaces=kernel.replaces, max_abs_err=err, **times,
                 plain_ms=plain_ms, library_ms=None, shape=shape, **bound)
 
 
-def check_fast(img: torch.Tensor, what: str) -> dict:
-    score_k = kernels.fast_score_map(img)
-    score_t = fast.fast_score_map(img)
-    torch.cuda.synchronize()
-    err = float((score_k - score_t).abs().max())
+def show(what: str, rec: dict, tail: str) -> None:
+    log(f"{what}: kernel {rec['ms']:.4f} ms  in a stream {rec['stream_ms']:.5f} ms"
+        f"  in a graph {rec['graph_ms']:.5f} ms  twin {rec['plain_ms']:.4f} ms  "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})  {tail}")
+
+
+def fast_err(img: torch.Tensor, score_k: torch.Tensor, what: str) -> float:
+    err = float((score_k - fast.fast_score_map(img)).abs().max())
     require(err == 0.0, f"fast_score kernel differs from its twin on {what}: {err}")
-    ms = time_ms(lambda: kernels.fast_score_map(img))
-    plain_ms = time_ms(lambda: fast.fast_score_map(img))
-    bound = fast_bound(img)
-    log(f"fast_score  {what} {tuple(img.shape)}: kernel {ms:.4f} ms  twin "
-        f"{plain_ms:.4f} ms  bound {bound['bound_ms']:.4f} ms "
-        f"({bound['bound_by']})  max|diff| {err}")
-    return record(kernels.FAST_SCORE, err, ms, plain_ms, bound,
-                  f"{what} {img.shape[0]}x{img.shape[1]}")
+    return err
 
 
-def level_keypoints(level_img: torch.Tensor, orb, level: int):
-    """One level's keypoints, angles and padded blurred image, as the
-    per-level extractor makes them."""
-    score = fast.border_mask(kernels.fast_score_map(level_img), DETECT_BORDER)
-    score = fast.cell_fallback_mask(score, float(orb.ini_th_fast),
-                                    float(orb.min_th_fast), orb.cell_size)
-    xy, _, valid = fast.select_keypoints(
-        fast.nms3x3(score), int(orb.features_per_level[level]),
-        orb.bucket_size, orb.per_bucket_cap)
-    m10, m01 = desc_ops.moment_maps(pyr_ops.reflect_pad(level_img, desc_ops.BORDER))
-    ang = desc_ops.ic_angle_from_maps(m10, m01, xy)
-    padded_blur = pyr_ops.reflect_pad(pyr_ops.gaussian_blur(level_img),
-                                      desc_ops.BORDER).contiguous()
-    return padded_blur, xy, ang, int(valid.sum())
+def check_fast(img: torch.Tensor, what: str) -> dict:
+    err = fast_err(img, kernels.fast_score_map(img), what)
+    rec = record(kernels.FAST_SCORE, err,
+                 clocks(lambda: kernels.fast_score_maps_kernel([img])),
+                 time_ms(lambda: fast.fast_score_map(img)), fast_bound(img),
+                 f"{what} {img.shape[0]}x{img.shape[1]}")
+    show(f"fast_score  {what} {tuple(img.shape)}", rec, f"max|diff| {err}")
+    return rec
 
 
-def check_brief_level(level_img: torch.Tensor, orb, level: int) -> dict:
-    padded_blur, xy, ang, n_valid = level_keypoints(level_img, orb, level)
-    desc_k = kernels.brief_descriptors_level(padded_blur, xy, ang)
-    desc_t = desc_ops.brief_descriptors(padded_blur, xy, ang)
-    torch.cuda.synchronize()
-    require(torch.equal(desc_k, desc_t),
-            f"brief_level kernel differs from its twin on level {level} in "
+def check_fast_awkward(device) -> None:
+    """Shapes around the kernel's tile and halo: an image smaller than a
+    halo, one column, one row, widths just past a vector and a tile,
+    heights off the tile, and all of them in one launch."""
+    rng = np.random.default_rng(4)
+    shapes = [(5, 7), (40, 1), (1, 50), (37, 33), (19, 130), (70, 65), (3, 4)]
+    imgs = [torch.as_tensor(rng.uniform(0, 255, s).astype(np.float32), device=device)
+            for s in shapes]
+    for img in imgs:
+        fast_err(img, kernels.fast_score_map(img), f"a {tuple(img.shape)} image")
+    for img, score in zip(imgs, kernels.fast_score_maps(imgs)):
+        fast_err(img, score, f"a {tuple(img.shape)} image among {len(imgs)}")
+    log(f"fast_score  awkward shapes {shapes}: max|diff| 0.0 singly and in one launch")
+
+
+def brief_words_err(desc_k, desc_t, what: str) -> float:
+    require(desc_k.shape == desc_t.shape and torch.equal(desc_k, desc_t),
+            f"{what} kernel differs from its twin in "
             f"{int((desc_k != desc_t).sum())} of {desc_k.numel()} words")
-    err = float((unpack_bits(desc_k) != unpack_bits(desc_t)).to(torch.float32).max())
-    cos, sin = desc_ops.cos_sin(ang)
-    cos, sin = cos.contiguous(), sin.contiguous()
-    ms = time_ms(lambda: kernels.brief_level_kernel(padded_blur, xy, cos, sin))
-    plain_ms = time_ms(lambda: kernels.brief_level_gather(padded_blur, xy, cos, sin))
-    bound = brief_bound(xy.shape[0])
-    log(f"brief_level level {level} {tuple(padded_blur.shape)}, {xy.shape[0]} "
-        f"keypoints ({n_valid} valid): kernel {ms:.4f} ms  twin {plain_ms:.4f} ms  "
-        f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})  words equal")
-    return record(kernels.BRIEF_LEVEL, err, ms, plain_ms, bound,
-                  f"level {level}, {xy.shape[0]} keypoints")
+    return float((unpack_bits(desc_k) != unpack_bits(desc_t)).to(torch.float32).max())
+
+
+def check_brief_level(padded_blur, xy, ang, level: int) -> None:
+    err = brief_words_err(kernels.brief_descriptors_level(padded_blur, xy, ang),
+                          desc_ops.brief_descriptors(padded_blur, xy, ang),
+                          f"brief_level (level {level})")
+    cos, sin = (t.contiguous() for t in desc_ops.cos_sin(ang))
+    rec = record(
+        kernels.BRIEF_LEVEL, err,
+        clocks(lambda: kernels.brief_level_kernel(padded_blur, xy, cos, sin)),
+        time_ms(lambda: kernels.brief_level_gather(padded_blur, xy, cos, sin)),
+        brief_bound(xy.shape[0]), f"level {level}, {xy.shape[0]} keypoints")
+    show(f"brief_level level {level} {tuple(padded_blur.shape)}, {xy.shape[0]} "
+         f"keypoints", rec, "words equal")
+
+
+def check_brief_corners(padded, xys, angs, device) -> None:
+    """One launch over the frame's images with an image without keypoints
+    in the middle of the list and, on the first and the last image,
+    keypoints at the level's four corners."""
+    def corners(img):
+        h, w = img.shape[0] - 2 * desc_ops.BORDER, img.shape[1] - 2 * desc_ops.BORDER
+        return torch.tensor([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]],
+                            dtype=torch.int32, device=device)
+
+    xys, angs = list(xys), list(angs)
+    mid = len(padded) // 2
+    xys[mid], angs[mid] = xys[mid][:0], angs[mid][:0]
+    for i in (0, len(padded) - 1):
+        xys[i] = torch.cat([corners(padded[i]), xys[i]])
+        angs[i] = torch.cat([angs[i][:4] + 45.0, angs[i]])
+    brief_words_err(kernels.brief_descriptors_levels(padded, xys, angs),
+                    kernels.brief_descriptors_levels_ref(padded, xys, angs),
+                    "brief_level (corner keypoints, an empty image)")
+    log(f"brief_level {len(padded)} images, image {mid} without keypoints, corner "
+        f"keypoints on the first and last: words equal")
+
+
+def check_frame_launches(imgs, per_level, fast_rec) -> dict:
+    """One frame's 16 level images with each level's own keypoints, the
+    shape the per-level path gives both kernels: every image through the
+    one multi-image launch and singly, exact; the one launch timed beside
+    its twin on the same inputs and beside the 16 single launches it
+    replaces.  Adds the ``frame_*`` keys to ``fast_rec`` (whose own shape
+    is the canvas) and returns brief_level's record, taken at this shape."""
+    xys = [p[0] for p in per_level]
+    angs = [p[3] for p in per_level]
+    padded = [p[4] for p in per_level]
+    for i, (img, score) in enumerate(zip(imgs, kernels.fast_score_maps(imgs))):
+        fast_err(img, score, f"level image {i} of the frame's one launch")
+        fast_err(img, kernels.fast_score_map(img), f"level image {i} alone")
+    err = brief_words_err(kernels.brief_descriptors_levels(padded, xys, angs),
+                          kernels.brief_descriptors_levels_ref(padded, xys, angs),
+                          "brief_level (the frame's one launch)")
+    n_kp = sum(k.shape[0] for k in xys)
+    log(f"frame of {len(imgs)} level images, {n_kp} keypoint slots, one launch "
+        f"each kernel: fast_score max|diff| 0.0 on every image, brief_level "
+        f"words equal")
+
+    counts = [k.shape[0] for k in xys]
+    xy_all = torch.cat(xys)
+    cs = [tuple(t.contiguous() for t in desc_ops.cos_sin(a)) for a in angs]
+    cos_all, sin_all = (torch.cat(t) for t in zip(*cs))
+
+    def brief_one():
+        return kernels.brief_levels_kernel(padded, counts, xy_all, cos_all, sin_all)
+
+    def brief_twin():
+        return torch.cat([kernels.brief_level_gather(p, k, c, s)
+                          for p, k, (c, s) in zip(padded, xys, cs)])
+
+    def brief_singles():
+        return [kernels.brief_level_kernel(p, k, c, s)
+                for p, k, (c, s) in zip(padded, xys, cs)]
+
+    level_rec = record(kernels.BRIEF_LEVEL, err, clocks(brief_one),
+                       time_ms(brief_twin), brief_bound(n_kp),
+                       f"a frame's {len(padded)} level images, {n_kp} keypoints")
+    show(f"brief_level the frame's {len(padded)} images, {n_kp} keypoints, one "
+         f"launch", level_rec, "words equal")
+    fast_bound_frame = bound_record(
+        sum(2 * i.numel() * 4 for i in imgs),
+        sum(i.numel() for i in imgs) * FAST_OPS_PER_PIXEL)
+    fast_rec.update(
+        frame_ms=time_stream_ms(lambda: kernels.fast_score_maps_kernel(imgs)),
+        frame_graph_ms=time_graph_ms(lambda: kernels.fast_score_maps_kernel(imgs)),
+        frame_plain_ms=time_ms(lambda: [fast.fast_score_map(i) for i in imgs]),
+        frame_bound_ms=fast_bound_frame["bound_ms"],
+        frame_bound_by=fast_bound_frame["bound_by"])
+    # brief_level's own record is the frame's launch
+    level_rec.update(
+        frame_ms=level_rec["stream_ms"], frame_graph_ms=level_rec["graph_ms"],
+        frame_plain_ms=level_rec["plain_ms"], frame_bound_ms=level_rec["bound_ms"],
+        frame_bound_by=level_rec["bound_by"])
+    for rec, singles, wrapper in (
+            (fast_rec, lambda: [kernels.fast_score_maps_kernel([i]) for i in imgs],
+             lambda: kernels.fast_score_maps(imgs)),
+            (level_rec, brief_singles,
+             lambda: kernels.brief_descriptors_levels(padded, xys, angs))):
+        rec["frame_singles_ms"] = time_stream_ms(singles, n=50)
+        rec["frame_singles_graph_ms"] = time_graph_ms(singles, n=4)
+        rec["frame_wrapper_ms"] = time_stream_ms(wrapper)
+        log(f"{rec['name']}  the frame's {len(imgs)} images: one launch "
+            f"{rec['frame_ms']:.5f} ms in a stream, {rec['frame_graph_ms']:.5f} ms "
+            f"in a graph, through the public wrapper {rec['frame_wrapper_ms']:.5f} "
+            f"ms in a stream (twin {rec['frame_plain_ms']:.4f} ms, bound "
+            f"{rec['frame_bound_ms']:.5f} ms, {rec['frame_bound_by']}); one launch "
+            f"an image {rec['frame_singles_ms']:.5f} ms in a stream, "
+            f"{rec['frame_singles_graph_ms']:.5f} ms in a graph")
+    return level_rec
 
 
 def check_kernels(seq, cfg, device) -> list:
     """Phase 2: each kernel against its twin on the frame's own tensors.
-    Returns one record per kernel, at the largest shape its path gives it."""
+    Returns one record per kernel, at the shape its path gives it: the
+    canvas for fast_score and brief_canvas (the atlas path), a frame's 16
+    level images in one launch for brief_level (the per-level path)."""
     orb = cfg.orb
     left = torch.as_tensor(seq.left[0], device=device).to(torch.float32)
     right = torch.as_tensor(seq.right[0], device=device).to(torch.float32)
@@ -231,32 +349,35 @@ def check_kernels(seq, cfg, device) -> list:
     log(f"canvas {tuple(canvas.shape)}, keypoint slots {kp.cxy.shape[0]}, "
         f"valid {int(kp.valid.sum())}")
 
-    fast_rec = check_fast(canvas, "canvas")
+    imgs = [level.contiguous() for level in levels_l + levels_r]
     last = orb.n_levels - 1
-    check_fast(levels_l[0].contiguous(), "level 0")
-    check_fast(levels_l[last].contiguous(), f"level {last}")
+    fast_rec = check_fast(canvas, "canvas")
+    check_fast(imgs[0], "level 0")
+    check_fast(imgs[last], f"level {last}")
+    check_fast_awkward(device)
 
-    cos, sin = desc_ops.cos_sin(kp.angle)
-    cos, sin = cos.contiguous(), sin.contiguous()
-    desc_k = kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle)
-    desc_t = kernels.brief_descriptors_canvas_ref(kp.blur, kp.cxy, kp.angle)
-    torch.cuda.synchronize()
-    bit_diff = unpack_bits(desc_k) != unpack_bits(desc_t)
-    brief_err = float(bit_diff.to(torch.float32).max())
-    require(torch.equal(desc_k, desc_t),
-            f"brief_canvas kernel differs from its twin in "
-            f"{int((desc_k != desc_t).sum())} of {desc_k.numel()} words")
-    brief_ms = time_ms(lambda: kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin))
-    brief_plain_ms = time_ms(lambda: kernels.brief_canvas_gather(kp.blur, kp.cxy, cos, sin))
-    canvas_bound = brief_bound(kp.cxy.shape[0])
-    log(f"brief_canvas {kp.cxy.shape[0]} keypoints: kernel {brief_ms:.4f} ms  "
-        f"twin {brief_plain_ms:.4f} ms  bound {canvas_bound['bound_ms']:.5f} ms "
-        f"({canvas_bound['bound_by']})  words {desc_k.shape[0]}x{desc_k.shape[1]} equal")
-    canvas_rec = record(kernels.BRIEF_CANVAS, brief_err, brief_ms, brief_plain_ms,
-                        canvas_bound, f"canvas, {kp.cxy.shape[0]} keypoints")
+    cos, sin = (t.contiguous() for t in desc_ops.cos_sin(kp.angle))
+    brief_err = brief_words_err(
+        kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle),
+        kernels.brief_descriptors_canvas_ref(kp.blur, kp.cxy, kp.angle),
+        "brief_canvas")
+    canvas_rec = record(
+        kernels.BRIEF_CANVAS, brief_err,
+        clocks(lambda: kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin)),
+        time_ms(lambda: kernels.brief_canvas_gather(kp.blur, kp.cxy, cos, sin)),
+        brief_bound(kp.cxy.shape[0]), f"canvas, {kp.cxy.shape[0]} keypoints")
+    show(f"brief_canvas {kp.cxy.shape[0]} keypoints", canvas_rec, "words equal")
 
-    level_rec = check_brief_level(levels_l[0].contiguous(), orb, 0)
-    check_brief_level(levels_l[last].contiguous(), orb, last)
+    # every level image's keypoints, angles and padded blurred image, as
+    # the per-level extractor makes them
+    per_level = [level_keypoints(img, kernels.fast_score_map(img), orb,
+                                 i % orb.n_levels)
+                 for i, img in enumerate(imgs)]
+    check_brief_level(per_level[0][4], per_level[0][0], per_level[0][3], 0)
+    check_brief_level(per_level[last][4], per_level[last][0], per_level[last][3], last)
+    check_brief_corners([p[4] for p in per_level], [p[0] for p in per_level],
+                        [p[3] for p in per_level], device)
+    level_rec = check_frame_launches(imgs, per_level, fast_rec)
     return [fast_rec, canvas_rec, level_rec]
 
 
@@ -393,12 +514,13 @@ def run_fused_chain(seq, cfg, device, snapshot) -> dict:
     return dict(counts=counts, fps=fps)
 
 
-def run_system(seq, cfg, device, n_frames: int, min_launches: dict,
-               unused: tuple) -> dict:
+def run_system(seq, cfg, device, n_frames: int, launches: dict,
+               unused: tuple, expected: tuple = None) -> dict:
     """Phases 5 and 6: ``System.track_stereo`` over the first ``n_frames``
-    frames with loop closing off.  ``min_launches`` maps a kernel's name
-    to its least launches per frame; kernels in ``unused`` must not have
-    launched."""
+    frames with loop closing off.  ``launches`` maps a kernel's name to
+    its launches per frame; kernels in ``unused`` must not
+    have launched; ``expected`` is the run's (keyframes, triangulated
+    landmarks), which exact kernels cannot change."""
     which = f"System(use_atlas={cfg.orb.use_atlas})"
     system = System(cfg, device, keyframe_capacity=256,
                     enable_loop_closing=False)
@@ -451,8 +573,12 @@ def run_system(seq, cfg, device, n_frames: int, min_launches: dict,
     require(n_kfs > 1, f"{which}: {n_kfs} keyframes")
     require(n_ba >= 1, f"{which}: local BA never ran")
     require(n_new > 0, f"{which}: the maintenance step created no landmark")
-    for name, per_frame in min_launches.items():
-        require(counts[name] >= per_frame * n_frames,
+    if expected is not None:
+        require((n_kfs, n_new) == expected,
+                f"{which}: {n_kfs} keyframes and {n_new} triangulated landmarks, "
+                f"expected {expected}")
+    for name, per_frame in launches.items():
+        require(counts[name] == per_frame * n_frames,
                 f"{which}: {name} launched {counts[name]} times over "
                 f"{n_frames} frames, expected {per_frame} per frame")
     for name in unused:
@@ -461,6 +587,11 @@ def run_system(seq, cfg, device, n_frames: int, min_launches: dict,
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (build, kernels against their "
+                         "twins, times) on a 2-frame sequence of the same size")
+    kernels_only = ap.parse_args().kernels_only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     device = torch.device("cuda", 0)
@@ -482,23 +613,27 @@ def main() -> None:
     log(f"map core built in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    seq, cfg = make_sequence()
+    seq, cfg = make_sequence(2 if kernels_only else N_FRAMES)
     cfg_levels = dataclasses.replace(
         cfg, orb=dataclasses.replace(cfg.orb, use_atlas=False))
-    log(f"rendered {N_FRAMES} frames of {WIDTH}x{HEIGHT} in "
+    log(f"rendered {seq.left.shape[0]} frames of {WIDTH}x{HEIGHT} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     records = check_kernels(seq, cfg, device)
+    if kernels_only:
+        print(json.dumps({"kernels": records}))
+        print(smi)
+        return
     check_frame_against_cpu(seq, cfg, device)
     check_frame_against_cpu(seq, cfg_levels, device)
     tracked = run_tracker(seq, cfg, device)
     fused = run_fused_chain(seq, cfg, device, tracked["snapshot"])
     main_path = run_system(seq, cfg, device, N_FRAMES,
                            {"fast_score": 1, "brief_canvas": 1},
-                           unused=("brief_level",))
+                           unused=("brief_level",), expected=(12, 2712))
     per_level = run_system(seq, cfg_levels, device, N_FRAMES_PER_LEVEL,
-                           {"fast_score": 16, "brief_level": 16},
-                           unused=("brief_canvas",))
+                           {"fast_score": 1, "brief_level": 1},
+                           unused=("brief_canvas",), expected=(5, 859))
     log(f"frames/s on the card: Tracker {tracked['fps']:.3f}, "
         f"fused_track_chain_step {fused['fps']:.3f}, System "
         f"{main_path['fps']:.3f}, System per level {per_level['fps']:.3f}")

@@ -1,6 +1,11 @@
 // Device code shared by the two steered-rBRIEF kernels (brief_canvas.cu,
 // brief_level.cu): the pattern in shared memory, the rotated and rounded
 // pattern offset, and the warp-wide compare-and-pack of one descriptor.
+// A warp gathers its keypoint's 512 samples from device memory where they
+// lie: 16 independent 4-byte loads a lane, each its own 32-byte sector,
+// from rows a whole image pitch apart.  (Staging the 39x39 window that
+// holds them in shared memory first was measured slower on an H100;
+// brief_level.cu says by how much.)
 //
 // Exactness contract with the plain PyTorch twins: cos and sin come from
 // the wrapper (computed in torch), the rotated offsets use __fmul_rn /

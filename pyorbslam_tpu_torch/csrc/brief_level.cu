@@ -1,65 +1,101 @@
-// Steered rBRIEF on one pyramid level's reflect-padded, blurred image.
+// Steered rBRIEF on the reflect-padded, blurred pyramid-level images of a
+// frame: one launch for up to 16 images (8 levels x left and right).
 //
 // Replaces the TPU kernel pyorbslam_tpu/ops/pallas_kernels.py
 // brief_descriptors_pallas (_brief_kernel) together with the pair compare
 // and bit pack that the JAX package runs after it: for each keypoint of
-// the level, the 256 pattern pairs rotated by the IC angle and rounded
+// each level, the 256 pattern pairs rotated by the IC angle and rounded
 // half to even (reach <= 19 px), both points of each pair sampled from
 // the padded float image (not rounded to u8), and bit j of word w set
 // when sample[2p] < sample[2p+1] for pair p = 32w + j.
-// Plain twin: pyorbslam_tpu_torch/ops/orb_descriptor.py::brief_descriptors.
+// Plain twin: pyorbslam_tpu_torch/ops/orb_descriptor.py::brief_descriptors,
+// once per image (kernels.brief_descriptors_levels_ref).
 //
-// What bounds it on an H100: launch latency, then scattered reads.  A
-// level holds a few hundred keypoints (434 at level 0 down to 122 at
-// level 7 of a 2000-feature frame), so a launch is 16..55 blocks on 132
-// SMs and moves under 1 MB; the per-level path makes 16 such launches a
-// frame.  Inside a launch the work is 512 four-byte gathers per keypoint
-// from a 39x39 window of an image that sits in L2.
+// What bounds it on an H100: the launch, then instruction count and load
+// latency.  A level holds 122..434 keypoint slots of a 2000-feature frame:
+// 16..55 blocks on 132 SMs, so a launch per level never fills the card, and
+// a frame paid 16 launches (3 us each on the card, 20..40 us each on the
+// host) for ~4000 keypoints.  Inside a launch the work is 512 four-byte
+// gathers per keypoint from a 39x39 window of an image that sits in L2; all
+// ~4000 warps are resident at once, so the kernel is one chain of a few
+// memory round trips plus the work its warps execute.
 //
-// What the design does about it: the TPU form's one-hot selection matmul
-// over an aligned 56x256 window (its way to read scattered pixels) is
-// dropped; a warp takes one keypoint, each lane reads its own two samples
-// per word and __ballot_sync packs the word, so the compare and the bit
-// pack happen in the kernel and the (N, 512) sample matrix never reaches
-// device memory.  The keypoint's level coordinates are shifted by the pad
-// here, so the wrapper passes them as the extractor made them.  One launch
-// per level is kept; batching the 16 levels of a frame into one launch is
-// later work.
+// What the design does about it:
+//  * One grid over all keypoints of all images.  The image table (pointer,
+//    pitch, first keypoint) travels by value in the kernel's parameters:
+//    nothing to allocate, copy or keep alive.  A warp takes one keypoint
+//    and finds its image by scanning at most 16 prefix entries; an image
+//    without keypoints is an entry like any other.  ~4000 slots are ~500
+//    blocks of 8 warps: the card is filled once instead of 16 times a
+//    sixth.
+//  * Each lane gathers its 16 samples where they lie, all loads of a lane
+//    independent, and __ballot_sync packs the words (brief_common.cuh:
+//    warp_descriptor, the body brief_canvas.cu runs too).  Staging the
+//    keypoint's 39x39 window in shared memory first, with loads or cp.async
+//    along image rows, was built and measured on an H100: it reads fewer
+//    sectors but makes 48 copies a lane before the first sample, and with
+//    every warp resident the gathers' latency is already hidden; it took
+//    1.6x the time (0.0107 against 0.0066 ms for a frame's 4000 keypoints)
+//    and is not kept.
+//  * 8 warps a block (4 measured slower), and the 4 KiB pattern copied to
+//    shared memory once a block.  __constant__ memory would serialise: the
+//    index differs in every lane.
+//  * Compare and bit pack stay in the kernel (__ballot_sync); the TPU
+//    form's one-hot selection matmul over an aligned 56x256 window is not
+//    carried over.  The exactness contract is brief_common.cuh's.
 #include "brief_common.cuh"
+
+constexpr int kMaxImages = 16;
+constexpr int kBorder = 19;  // reflect pad of a level image = the pattern's reach
+
+extern "C" {
+struct BriefImage {
+  const float* img;  // padded blurred level image
+  int pitch;         // floats per row
+  int first;         // index of its first keypoint in the concatenated arrays
+};
+struct BriefTable {
+  BriefImage im[kMaxImages];
+  int n;
+};
+}
 
 namespace {
 
-__global__ void brief_level_kernel(const float* __restrict__ padded, int wp,
-                                   int border, const int* __restrict__ xy,
-                                   const float* __restrict__ cosv,
-                                   const float* __restrict__ sinv,
-                                   const float* __restrict__ pattern,
-                                   int* __restrict__ out, int n) {
+__global__ void __launch_bounds__(32 * brief::kWarps)
+brief_levels_kernel(const __grid_constant__ BriefTable tab,
+                    const int* __restrict__ xy, const float* __restrict__ cosv,
+                    const float* __restrict__ sinv,
+                    const float* __restrict__ pattern, int* __restrict__ out,
+                    int n) {
   __shared__ float pat[brief::kPatternFloats];
   brief::load_pattern(pat, pattern);
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * brief::kWarps + warp;
   if (k >= n) return;  // uniform across the warp
-  const int x = xy[2 * k] + border;
-  const int y = xy[2 * k + 1] + border;
+  int i = 0;
+  while (i < tab.n - 1 && k >= tab.im[i + 1].first) ++i;
+  // level (x, y) sits at (x + 19, y + 19) of the image padded by 19
   const unsigned int mine = brief::warp_descriptor(
-      padded, wp, x, y, pat, cosv[k], sinv[k], lane);
+      tab.im[i].img, tab.im[i].pitch, xy[2 * k] + kBorder,
+      xy[2 * k + 1] + kBorder, pat, cosv[k], sinv[k], lane);
   if (lane < 8) out[8 * k + lane] = static_cast<int>(mine);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() as an int (0 = launched).
-extern "C" int brief_level_launch(const float* padded, int wp, int border,
-                                  const int* xy, const float* cosv,
-                                  const float* sinv, const float* pattern,
-                                  int* out, int n, void* stream) {
+// One launch on `stream` for the `n` keypoints of `tab->n` images; returns
+// the first CUDA error as an int (0 = launched).
+extern "C" int brief_level_launch(const BriefTable* tab, const int* xy,
+                                  const float* cosv, const float* sinv,
+                                  const float* pattern, int* out, int n,
+                                  void* stream) {
+  if (tab->n < 1 || tab->n > kMaxImages) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   dim3 block(32 * brief::kWarps);
   dim3 grid((n + brief::kWarps - 1) / brief::kWarps);
-  brief_level_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      padded, wp, border, xy, cosv, sinv, pattern, out, n);
+  brief_levels_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      *tab, xy, cosv, sinv, pattern, out, n);
   return static_cast<int>(cudaGetLastError());
 }

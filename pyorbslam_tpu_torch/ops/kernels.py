@@ -5,14 +5,24 @@ Three kernels carry the per-frame frontend; they replace the three
 Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
 
 * ``fast_score`` (``csrc/fast_score.cu``), FAST-9/16 corner strength over
-  the atlas canvas or one pyramid level.  Twin:
-  :func:`pyorbslam_tpu_torch.ops.fast.fast_score_map`.
+  a list of images in one launch: the atlas canvas alone
+  (:func:`fast_score_map`) or the 16 level images of a stereo frame
+  (:func:`fast_score_maps`).  Twin:
+  :func:`pyorbslam_tpu_torch.ops.fast.fast_score_map`, once per image.
 * ``brief_canvas`` (``csrc/brief_canvas.cu``), steered rBRIEF on the
   blurred canvas (``OrbConfig.use_atlas=True``).  Twin:
   :func:`brief_descriptors_canvas_ref`.
-* ``brief_level`` (``csrc/brief_level.cu``), steered rBRIEF on one level's
-  reflect-padded blurred image (``use_atlas=False``).  Twin:
-  :func:`pyorbslam_tpu_torch.ops.orb_descriptor.brief_descriptors`.
+* ``brief_level`` (``csrc/brief_level.cu``), steered rBRIEF on the
+  reflect-padded blurred level images of a frame in one launch
+  (``use_atlas=False``; :func:`brief_descriptors_levels`, and
+  :func:`brief_descriptors_level` for one image).  Twin:
+  :func:`brief_descriptors_levels_ref`, that is
+  :func:`pyorbslam_tpu_torch.ops.orb_descriptor.brief_descriptors` once
+  per image.
+
+The two multi-image kernels take their image table by value in the
+kernel's parameters, at most ``MAX_IMAGES`` = 16 entries (8 levels x left
+and right).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  The build runs at
@@ -36,7 +46,7 @@ import os
 import shutil
 import subprocess
 from functools import lru_cache
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -50,6 +60,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 BRIEF_REACH = 19   # max |rounded rotated pattern offset| on the canvas
+MAX_IMAGES = 16    # entries of a multi-image kernel's by-value image table
 
 
 def _nvcc() -> str:
@@ -133,9 +144,30 @@ class CudaKernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+
+class _FastImage(ctypes.Structure):
+    """``FastImage`` of csrc/fast_score.cu; the launch function fills the
+    tile fields."""
+    _fields_ = [("img", _P), ("out", _P), ("h", _I), ("w", _I),
+                ("tiles_x", _I), ("tile_end", _I)]
+
+
+class _FastTable(ctypes.Structure):
+    _fields_ = [("im", _FastImage * MAX_IMAGES), ("n", _I)]
+
+
+class _BriefImage(ctypes.Structure):
+    """``BriefImage`` of csrc/brief_level.cu."""
+    _fields_ = [("img", _P), ("pitch", _I), ("first", _I)]
+
+
+class _BriefTable(ctypes.Structure):
+    _fields_ = [("im", _BriefImage * MAX_IMAGES), ("n", _I)]
+
+
 FAST_SCORE = CudaKernel(
     "fast_score", "pyorbslam_tpu_torch/csrc/fast_score.cu", "fast_score_launch",
-    [_P, _P, _I, _I, _P],
+    [ctypes.POINTER(_FastTable), _P],
     replaces="pyorbslam_tpu/ops/pallas_kernels.py:83",
 )
 BRIEF_CANVAS = CudaKernel(
@@ -147,7 +179,7 @@ BRIEF_CANVAS = CudaKernel(
 BRIEF_LEVEL = CudaKernel(
     "brief_level", "pyorbslam_tpu_torch/csrc/brief_level.cu",
     "brief_level_launch",
-    [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    [ctypes.POINTER(_BriefTable), _P, _P, _P, _P, _P, _I, _P],
     replaces="pyorbslam_tpu/ops/pallas_kernels.py:206",
 )
 KERNELS: List[CudaKernel] = [FAST_SCORE, BRIEF_CANVAS, BRIEF_LEVEL]
@@ -177,8 +209,6 @@ def _check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                 device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype
     and shape (None in ``shape`` matches any size) on ``device``."""
-    if t.device.type != "cuda" or t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(
@@ -186,18 +216,58 @@ def _check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
+
+
+def _check_image_list(imgs: Sequence[torch.Tensor], what: str) -> torch.device:
+    """Raise unless ``imgs`` holds 1..MAX_IMAGES tensors on one device;
+    returns that device."""
+    if not 1 <= len(imgs) <= MAX_IMAGES:
+        raise ValueError(
+            f"{what}: {len(imgs)} images; one launch takes 1 to {MAX_IMAGES} "
+            f"(8 pyramid levels x left and right); a frame with more levels "
+            f"needs more than one call")
+    dev = imgs[0].device
+    for i, img in enumerate(imgs):
+        if img.device != dev:
+            raise ValueError(f"{what}: image {i} is on {img.device}, image 0 on {dev}")
+    return dev
+
+
+def fast_score_maps_kernel(imgs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One fast_score launch over all of ``imgs`` (CUDA, float32, (H, W),
+    contiguous)."""
+    dev = _check_image_list(imgs, "fast_score_maps")
+    table = _FastTable()
+    table.n = len(imgs)
+    outs = []
+    for i, img in enumerate(imgs):
+        if img.numel() == 0:
+            raise ValueError(f"imgs[{i}]: empty image {tuple(img.shape)}")
+        _check_cuda(img, f"imgs[{i}]", torch.float32, (None, None), dev)
+        out = torch.empty_like(img)
+        entry = table.im[i]
+        entry.img, entry.out = img.data_ptr(), out.data_ptr()
+        entry.h, entry.w = img.shape
+        outs.append(out)
+    FAST_SCORE.launch(dev, ctypes.byref(table))
+    return outs
+
+
+def fast_score_maps(imgs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """FAST-9/16 corner strength of up to 16 float32 (H_i, W_i) images: one
+    launch of the CUDA kernel for CUDA tensors, the twin
+    ``fast.fast_score_map`` per image for CPU tensors."""
+    if _check_image_list(imgs, "fast_score_maps").type == "cpu":
+        return [fast_ops.fast_score_map(img) for img in imgs]
+    return fast_score_maps_kernel(imgs)
 
 
 def fast_score_map(img: torch.Tensor) -> torch.Tensor:
-    """FAST-9/16 corner strength of a float32 (H, W) image: the CUDA kernel
-    for a CUDA tensor, the twin ``fast.fast_score_map`` for a CPU tensor."""
-    if img.device.type == "cpu":
-        return fast_ops.fast_score_map(img)
-    _check_cuda(img, "img", torch.float32, (None, None), img.device)
-    h, w = img.shape
-    out = torch.empty_like(img)
-    FAST_SCORE.launch(img.device, img.data_ptr(), out.data_ptr(), h, w)
-    return out
+    """FAST-9/16 corner strength of one float32 (H, W) image (the atlas
+    canvas): the one-image case of :func:`fast_score_maps`."""
+    return fast_score_maps([img])[0]
 
 
 def _check_brief_bounds(canvas: torch.Tensor, xy: torch.Tensor) -> None:
@@ -285,48 +355,120 @@ def brief_descriptors_canvas(
     return brief_canvas_kernel(blur_canvas, xy, cos.contiguous(), sin.contiguous())
 
 
-def _check_level_bounds(padded_blurred: torch.Tensor, xy: torch.Tensor) -> None:
+def _level_shape(padded_blurred: torch.Tensor) -> tuple:
+    return (padded_blurred.shape[0] - 2 * desc_ops.BORDER,
+            padded_blurred.shape[1] - 2 * desc_ops.BORDER)
+
+
+def _check_levels_bounds(padded_blurred: Sequence[torch.Tensor],
+                         counts: Sequence[int], xy_all: torch.Tensor) -> None:
     """Raise unless every keypoint lies inside its level: the pad is
     ``BORDER`` = 19 px and the rotated pattern reaches 19, so a keypoint
     anywhere in the level keeps all 512 samples on the padded image.
-    (``select_keypoints`` fills invalid slots with in-level pixels too.)"""
-    if xy.shape[0] == 0:
+    (``select_keypoints`` fills invalid slots with in-level pixels too.)
+    ``xy_all`` holds the ``counts[i]`` keypoints of each image in turn; one
+    comparison and one host read serve all images."""
+    if xy_all.shape[0] == 0:
         return
-    h = padded_blurred.shape[0] - 2 * desc_ops.BORDER
-    w = padded_blurred.shape[1] - 2 * desc_ops.BORDER
-    out = ((xy < 0).any() | (xy[:, 0] >= w).any() | (xy[:, 1] >= h).any())
-    if bool(out):
-        raise ValueError(
-            f"brief_descriptors_level: a keypoint lies outside the {h}x{w} level")
+    shapes = [_level_shape(p) for p in padded_blurred]
+    limit = torch.tensor([[w, h] for h, w in shapes], dtype=torch.int32)
+    limit = limit.repeat_interleave(torch.tensor(list(counts)), dim=0)
+    outside = ((xy_all < 0) | (xy_all >= limit.to(xy_all.device))).any(dim=1)
+    if bool(outside.any()):
+        k = int(outside.nonzero()[0])
+        ends = torch.tensor(list(counts)).cumsum(0)
+        i = int(torch.searchsorted(ends, k, right=True))
+        h, w = shapes[i]
+        raise ValueError(f"brief_descriptors_levels: a keypoint of image {i} "
+                         f"lies outside the {h}x{w} level")
+
+
+def _check_level_bounds(padded_blurred: torch.Tensor, xy: torch.Tensor) -> None:
+    """The one-image case of :func:`_check_levels_bounds`."""
+    _check_levels_bounds([padded_blurred], [xy.shape[0]], xy)
+
+
+def brief_levels_kernel(images: Sequence[torch.Tensor], counts: Sequence[int],
+                        xy: torch.Tensor, cos: torch.Tensor,
+                        sin: torch.Tensor) -> torch.Tensor:
+    """One brief_level launch on CUDA tensors: ``images[i]`` holds the
+    ``counts[i]`` keypoints that follow those of image ``i - 1`` in the
+    concatenated ``xy`` (N, 2), ``cos`` and ``sin`` (N,).  No bounds check:
+    callers go through :func:`brief_descriptors_levels`."""
+    dev = _check_image_list(images, "brief_descriptors_levels")
+    n = xy.shape[0]
+    if len(counts) != len(images) or sum(counts) != n:
+        raise ValueError(f"counts {list(counts)} do not describe {len(images)} "
+                         f"images and {n} keypoints")
+    _check_cuda(xy, "xy", torch.int32, (n, 2), dev)
+    _check_cuda(cos, "cos", torch.float32, (n,), dev)
+    _check_cuda(sin, "sin", torch.float32, (n,), dev)
+    table = _BriefTable()
+    table.n = len(images)
+    first = 0
+    for i, img in enumerate(images):
+        _check_cuda(img, f"padded_blurred[{i}]", torch.float32, (None, None), dev)
+        entry = table.im[i]
+        entry.img, entry.pitch, entry.first = img.data_ptr(), img.shape[1], first
+        first += counts[i]
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    BRIEF_LEVEL.launch(dev, ctypes.byref(table), xy.data_ptr(), cos.data_ptr(),
+                       sin.data_ptr(), _pattern_on(dev).data_ptr(), out.data_ptr(), n)
+    return out
 
 
 def brief_level_kernel(padded_blurred: torch.Tensor, xy: torch.Tensor,
                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Launch the brief_level kernel on CUDA tensors (no bounds check:
-    callers go through :func:`brief_descriptors_level`)."""
-    dev = padded_blurred.device
-    n = xy.shape[0]
-    _check_cuda(padded_blurred, "padded_blurred", torch.float32, (None, None), dev)
-    _check_cuda(xy, "xy", torch.int32, (n, 2), dev)
-    _check_cuda(cos, "cos", torch.float32, (n,), dev)
-    _check_cuda(sin, "sin", torch.float32, (n,), dev)
-    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    BRIEF_LEVEL.launch(
-        dev, padded_blurred.data_ptr(), padded_blurred.shape[1], desc_ops.BORDER,
-        xy.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        _pattern_on(dev).data_ptr(), out.data_ptr(), n)
-    return out
+    """The one-image case of :func:`brief_levels_kernel`."""
+    return brief_levels_kernel([padded_blurred], [xy.shape[0]], xy, cos, sin)
+
+
+def brief_descriptors_levels_ref(
+    padded_blurred: Sequence[torch.Tensor], xy: Sequence[torch.Tensor],
+    angle_deg: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """Plain twin of the brief_level kernel:
+    ``orb_descriptor.brief_descriptors`` per image (an image may have no
+    keypoints), concatenated."""
+    return torch.cat([
+        desc_ops.brief_descriptors(p, k, a) if k.shape[0]
+        else torch.empty((0, 8), dtype=torch.int32, device=p.device)
+        for p, k, a in zip(padded_blurred, xy, angle_deg)])
+
+
+def brief_descriptors_levels(
+    padded_blurred: Sequence[torch.Tensor], xy: Sequence[torch.Tensor],
+    angle_deg: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """Steered rBRIEF on up to 16 level images: ``padded_blurred[i]`` is
+    (H_i + 38, W_i + 38) float32 (reflect pad of ``BORDER``), ``xy[i]``
+    (N_i, 2) int32 level coords, ``angle_deg[i]`` (N_i,) degrees ->
+    (sum N_i, 8) int32 words in the order given.  One launch of the CUDA
+    kernel for CUDA tensors, the twin :func:`brief_descriptors_levels_ref`
+    for CPU tensors.  cos and sin are computed here in torch, exactly as
+    the twin computes them."""
+    dev = _check_image_list(padded_blurred, "brief_descriptors_levels")
+    if not len(xy) == len(angle_deg) == len(padded_blurred):
+        raise ValueError(
+            f"brief_descriptors_levels: {len(padded_blurred)} images, "
+            f"{len(xy)} keypoint arrays, {len(angle_deg)} angle arrays")
+    for i, k in enumerate(xy):
+        if k.device != dev or angle_deg[i].device != dev:
+            raise ValueError(f"brief_descriptors_levels: keypoints of image {i} "
+                             f"are not on {dev}")
+    counts = [k.shape[0] for k in xy]
+    xy_all = torch.cat(list(xy))
+    _check_levels_bounds(padded_blurred, counts, xy_all)
+    if dev.type == "cpu":
+        return brief_descriptors_levels_ref(padded_blurred, xy, angle_deg)
+    cos, sin = desc_ops.cos_sin(torch.cat(list(angle_deg)))
+    return brief_levels_kernel(padded_blurred, counts, xy_all, cos.contiguous(),
+                               sin.contiguous())
 
 
 def brief_descriptors_level(
     padded_blurred: torch.Tensor, xy: torch.Tensor, angle_deg: torch.Tensor
 ) -> torch.Tensor:
-    """Steered rBRIEF on one level: padded_blurred (H + 38, W + 38) float32
-    (reflect pad of ``BORDER``), xy (N, 2) int32 level coords, angle (N,)
-    degrees -> (N, 8) int32 words.  The CUDA kernel for CUDA tensors, the
-    twin ``orb_descriptor.brief_descriptors`` for CPU tensors."""
-    if padded_blurred.device.type == "cpu":
-        return desc_ops.brief_descriptors(padded_blurred, xy, angle_deg)
-    _check_level_bounds(padded_blurred, xy)
-    cos, sin = desc_ops.cos_sin(angle_deg)
-    return brief_level_kernel(padded_blurred, xy, cos.contiguous(), sin.contiguous())
+    """Steered rBRIEF on one level: the one-image case of
+    :func:`brief_descriptors_levels`."""
+    return brief_descriptors_levels([padded_blurred], [xy], [angle_deg])

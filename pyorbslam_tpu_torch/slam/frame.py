@@ -18,7 +18,7 @@ from pyorbslam_tpu_torch.config import SlamConfig
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops import stereo as stereo_ops
 from pyorbslam_tpu_torch.ops.atlas import extract_features_atlas
-from pyorbslam_tpu_torch.ops.extractor import extract_features
+from pyorbslam_tpu_torch.ops.extractor import extract_features_stereo
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
 
 
@@ -56,8 +56,9 @@ def build_stereo_frame(
             left, right, orb, levels_l=levels_l, levels_r=levels_r
         )
     else:
-        lf = extract_features(left, orb, levels=levels_l)
-        rf = extract_features(right, orb, levels=levels_r)
+        lf, rf = extract_features_stereo(
+            left, right, orb, levels_l=levels_l, levels_r=levels_r
+        )
 
     atlas_l = stereo_ops.build_atlas(levels_l)
     atlas_r = stereo_ops.build_atlas(levels_r)

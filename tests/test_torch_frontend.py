@@ -6,6 +6,7 @@ CPU, where every hand kernel's wrapper runs its plain twin.  Tolerances
 are stated per test with their reason.
 """
 
+import dataclasses
 import glob
 import os
 
@@ -302,6 +303,148 @@ class TestBriefTwin:
             jpyr.reflect_pad(jnp.asarray(img), 19), jnp.asarray(xy),
             jnp.asarray(ang)))
         np.testing.assert_array_equal(got, ref)
+
+
+@pytest.fixture(scope="module")
+def three_levels():
+    """A 3-level pyramid of a 160x96 texture crop with 64 keypoints and
+    angles a level (numpy seed), as numpy arrays: level images, blurred
+    reflect-padded level images (the port's, bit-equal to the JAX
+    package's eager ones, see test_pyramid_levels), xy, angles."""
+    rng = np.random.default_rng(31)
+    img = jsyn.make_texture(512, seed=5)[:96, :160]
+    levels = [N(l) for l in tpyr.build_pyramid(T(img), 1.2, 3)]
+    padded = [N(tpyr.reflect_pad(tpyr.gaussian_blur(T(l)), 19)) for l in levels]
+    xy = [np.stack([rng.integers(16, l.shape[1] - 16, 64),
+                    rng.integers(16, l.shape[0] - 16, 64)], 1).astype(np.int32)
+          for l in levels]
+    ang = [rng.uniform(0.0, 360.0, 64).astype(np.float32) for _ in levels]
+    return levels, padded, xy, ang
+
+
+class TestMultiImageWrappers:
+    """The one-call-a-frame entry points on the CPU (their twins) against
+    the JAX package's function per level."""
+
+    def test_fast_score_maps_equals_jax_per_level(self, three_levels):
+        """max |diff| 0 on every pixel against the eager JAX function; the
+        Pallas kernel in interpret mode, as tests/test_pallas.py runs it,
+        outside the column border it documents."""
+        levels = three_levels[0]
+        got = kernels.fast_score_maps([T(l) for l in levels])
+        assert len(got) == len(levels)
+        for g, l in zip(got, levels):
+            np.testing.assert_array_equal(
+                N(g), np.asarray(jfast.fast_score_map(jnp.asarray(l))))
+            ref = np.asarray(fast_score_map_pallas(jnp.asarray(l), interpret=True))
+            b = 4
+            np.testing.assert_allclose(N(g)[b:-b, b:-b], ref[b:-b, b:-b], atol=1e-5)
+        assert kernels.FAST_SCORE.launches == 0
+
+    def test_brief_levels_ref_equals_jax_per_level(self, three_levels):
+        """Every word equal given the same angles, per level and in the
+        order given, through the twin and through the wrapper."""
+        _, padded, xy, ang = three_levels
+        args = ([T(p) for p in padded], [T(k) for k in xy], [T(a) for a in ang])
+        ref = np.concatenate([
+            np.asarray(jdesc.brief_descriptors(jnp.asarray(p), jnp.asarray(k),
+                                               jnp.asarray(a)))
+            for p, k, a in zip(padded, xy, ang)])
+        for fn in (kernels.brief_descriptors_levels_ref,
+                   kernels.brief_descriptors_levels):
+            np.testing.assert_array_equal(convert.desc_from_port(N(fn(*args))), ref)
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+
+def _extract_loop_per_level(img, orb, levels=None):
+    """The per-level extractor as a loop with one score call and one
+    descriptor call a level (the form before the calls were gathered)."""
+    if levels is None:
+        levels = tpyr.build_pyramid(img, orb.scale_factor, orb.n_levels)
+    cols = [[] for _ in range(6)]
+    for l, level_img in enumerate(levels):
+        level_img = level_img.contiguous()
+        score = tfast.border_mask(tfast.fast_score_map(level_img), text.DETECT_BORDER)
+        score = tfast.cell_fallback_mask(score, float(orb.ini_th_fast),
+                                         float(orb.min_th_fast), orb.cell_size)
+        xy, resp, valid = tfast.select_keypoints(
+            tfast.nms3x3(score), int(orb.features_per_level[l]), orb.bucket_size,
+            orb.per_bucket_cap)
+        m10, m01 = tdesc.moment_maps(tpyr.reflect_pad(level_img, tdesc.BORDER))
+        ang = tdesc.ic_angle_from_maps(m10, m01, xy)
+        padded_blur = tpyr.reflect_pad(tpyr.gaussian_blur(level_img), tdesc.BORDER)
+        d = tdesc.brief_descriptors(padded_blur.contiguous(), xy, ang)
+        s = torch.tensor(float(orb.scale_factors[l]), dtype=torch.float32)
+        for col, v in zip(cols, (xy.to(torch.float32) * s, resp, ang,
+                                 torch.full((xy.shape[0],), l, dtype=torch.int32),
+                                 d, valid)):
+            col.append(v)
+    cap = orb.max_keypoints
+    return text.FrameFeatures(*(text._pad_axis0(torch.cat(c), cap) for c in cols))
+
+
+class TestPerLevelCallStructure:
+    @pytest.fixture(scope="class")
+    def pair(self):
+        img = tsyn.make_texture(512, seed=7)[:200, :320]
+        return T(img), T(np.roll(img, -5, axis=1).copy())
+
+    @pytest.mark.parametrize("n_levels", [4, 9])
+    def test_extract_features_equals_the_loop(self, pair, n_levels):
+        """Field for field (torch.equal): gathering the calls changes no
+        result.  9 levels do not fit the stereo call's 16-image table; each
+        image then takes its own calls, with the same result."""
+        left, right = pair
+        orb = tcfg_mod.OrbConfig(n_features=600, n_levels=n_levels, use_atlas=False)
+        want_l = _extract_loop_per_level(left, orb)
+        want_r = _extract_loop_per_level(right, orb)
+        got_l = text.extract_features(left, orb)
+        stereo_l, stereo_r = text.extract_features_stereo(left, right, orb)
+        assert int(want_l.valid.sum()) > 200
+        for got, want in ((got_l, want_l), (stereo_l, want_l), (stereo_r, want_r)):
+            assert got.capacity == orb.max_keypoints
+            for name in text.FrameFeatures._fields:
+                a, b = getattr(got, name), getattr(want, name)
+                assert a.dtype == b.dtype and torch.equal(a, b), name
+
+    def test_shared_pyramids_are_used(self, pair):
+        left, right = pair
+        orb = tcfg_mod.OrbConfig(n_features=600, n_levels=4, use_atlas=False)
+        ll = tpyr.build_pyramid(left, orb.scale_factor, orb.n_levels)
+        lr = tpyr.build_pyramid(right, orb.scale_factor, orb.n_levels)
+        a = text.extract_features_stereo(left, right, orb, levels_l=ll, levels_r=lr)
+        b = text.extract_features_stereo(left, right, orb)
+        for fa, fb in zip(a, b):
+            for name in text.FrameFeatures._fields:
+                assert torch.equal(getattr(fa, name), getattr(fb, name)), name
+        single = text.extract_features(right, orb, levels=lr)
+        assert torch.equal(single.desc, b[1].desc)
+
+    def test_build_stereo_frame_per_level(self, stereo_pair, cfgs):
+        """The slice as a whole with use_atlas=False on the cached frame,
+        each package end to end: same keypoints, descriptor bits of the
+        valid slots >= 99.9% (IC angles, see test_ic_angles_at; an invalid
+        slot sits on a flat corner pixel of its level, where the angle is
+        arbitrary and nothing reads the words), same matched set but for the
+        few features whose differing bits move them across the matcher's
+        distance threshold (>= 99%)."""
+        jc, tc = cfgs
+        jc = dataclasses.replace(jc, orb=dataclasses.replace(jc.orb, use_atlas=False))
+        tc = dataclasses.replace(tc, orb=dataclasses.replace(tc.orb, use_atlas=False))
+        l, r = stereo_pair
+        jf = jframe.build_stereo_frame_jit(jnp.asarray(l), jnp.asarray(r), jc)
+        ref = {k: np.asarray(v) for k, v in jf._asdict().items()}
+        got = convert.frame_to_numpy(tframe.build_stereo_frame(T(l), T(r), tc))
+        for name in ("xy", "octave", "valid"):
+            np.testing.assert_array_equal(got[name], ref[name], name)
+        v = got["valid"]
+        assert int(v.sum()) > 500
+        assert bit_agreement(ref["desc"][v], got["desc"][v]) >= 0.999
+        m = ref["depth"] > 0
+        assert m.sum() > 300
+        assert ((got["depth"] > 0) == m).mean() >= 0.99
+        assert kernels.launch_counts() == {
+            "fast_score": 0, "brief_canvas": 0, "brief_level": 0}
 
 
 class TestOrientation:

@@ -35,6 +35,22 @@ def keypoints():
 
 
 @pytest.fixture
+def level_images():
+    """A 3-level pyramid of a 160x96 image: (level images, padded blurred
+    level images, 64 keypoints and angles a level), from a numpy seed."""
+    rng = np.random.default_rng(21)
+    img = torch.as_tensor(rng.uniform(0, 255, (96, 160)).astype(np.float32))
+    levels = [l.contiguous() for l in pyr_ops.build_pyramid(img, 1.2, 3)]
+    padded = [pyr_ops.reflect_pad(pyr_ops.gaussian_blur(l), desc_ops.BORDER).contiguous()
+              for l in levels]
+    xy = [torch.as_tensor(np.stack([rng.integers(0, l.shape[1], 64),
+                                    rng.integers(0, l.shape[0], 64)], 1).astype(np.int32))
+          for l in levels]
+    ang = [torch.as_tensor(rng.uniform(0, 360, 64).astype(np.float32)) for _ in levels]
+    return levels, padded, xy, ang
+
+
+@pytest.fixture
 def no_build(monkeypatch):
     """Fail the test if anything starts nvcc or loads a shared library."""
     def refuse(*args, **kwargs):
@@ -70,6 +86,38 @@ class TestCpuWrappers:
         assert torch.equal(got, desc_ops.brief_descriptors(padded, xy, ang))
         cos, sin = desc_ops.cos_sin(ang)
         assert torch.equal(got, kernels.brief_level_gather(padded, xy, cos, sin))
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+    def test_fast_maps_wrapper_returns_twins_without_launch(self, level_images,
+                                                            no_build):
+        levels = level_images[0]
+        got = kernels.fast_score_maps(levels)
+        assert len(got) == 3
+        for g, l in zip(got, levels):
+            assert g.shape == l.shape
+            assert torch.equal(g, fast_ops.fast_score_map(l))
+        assert torch.equal(kernels.fast_score_map(levels[1]), got[1])
+        assert kernels.FAST_SCORE.launches == 0
+
+    def test_levels_brief_wrapper_returns_twin_without_launch(self, level_images,
+                                                              no_build):
+        _, padded, xy, ang = level_images
+        got = kernels.brief_descriptors_levels(padded, xy, ang)
+        assert got.dtype == torch.int32 and got.shape == (3 * 64, 8)
+        assert torch.equal(got, kernels.brief_descriptors_levels_ref(padded, xy, ang))
+        for i in range(3):
+            one = kernels.brief_descriptors_level(padded[i], xy[i], ang[i])
+            assert torch.equal(got[64 * i: 64 * (i + 1)], one)
+            assert torch.equal(one, desc_ops.brief_descriptors(padded[i], xy[i], ang[i]))
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+    def test_levels_brief_takes_an_image_without_keypoints(self, level_images,
+                                                           no_build):
+        _, padded, xy, ang = level_images
+        xy[1], ang[1] = xy[1][:0], ang[1][:0]
+        got = kernels.brief_descriptors_levels(padded, xy, ang)
+        assert got.shape == (2 * 64, 8)
+        assert torch.equal(got[64:], desc_ops.brief_descriptors(padded[2], xy[2], ang[2]))
         assert kernels.BRIEF_LEVEL.launches == 0
 
     @pytest.mark.parametrize("use_atlas", [True, False])
@@ -113,6 +161,85 @@ class TestNoFallback:
                 launch(
                     meta, torch.empty((4, 2), dtype=torch.int32, device="meta"),
                     torch.empty(4, device="meta"), torch.empty(4, device="meta"))
+
+    @pytest.mark.parametrize("fault", [
+        "too_many_images", "no_image", "mixed_devices", "wrong_dtype",
+        "non_contiguous", "empty_image"])
+    def test_fast_maps_refuses(self, fault, level_images, no_build):
+        """What the multi-image FAST wrapper cannot launch on raises, on
+        the CPU path where the table size binds too (the meta device
+        stands in for a card)."""
+        levels = level_images[0]
+        meta = [torch.empty(l.shape, device="meta") for l in levels]
+        imgs, match = {
+            "too_many_images": (levels * 6, "18 images"),
+            "no_image": ([], "0 images"),
+            "mixed_devices": ([levels[0], meta[1]], "image 1 is on meta"),
+            "wrong_dtype": ([meta[0].to(torch.float64)], "expected torch.float32"),
+            "non_contiguous": ([meta[0].t()], "contiguous"),
+            "empty_image": ([meta[0][:0]], "empty image"),
+        }[fault]
+        with pytest.raises(ValueError, match=match):
+            kernels.fast_score_maps(imgs)
+        assert kernels.FAST_SCORE.launches == 0
+
+    @pytest.mark.parametrize("fault", [
+        "too_many_images", "mixed_devices", "keypoints_elsewhere", "wrong_dtype",
+        "non_contiguous", "keypoint_outside", "ragged_lists", "bad_counts"])
+    def test_levels_brief_refuses(self, fault, level_images, no_build):
+        _, padded, xy, ang = level_images
+        meta = lambda ts: [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in ts]
+        if fault == "too_many_images":
+            call = lambda: kernels.brief_descriptors_levels(padded * 6, xy * 6, ang * 6)
+            match = "18 images"
+        elif fault == "mixed_devices":
+            call = lambda: kernels.brief_descriptors_levels(
+                [padded[0], meta(padded)[1], padded[2]], xy, ang)
+            match = "image 1 is on meta"
+        elif fault == "keypoints_elsewhere":
+            call = lambda: kernels.brief_descriptors_levels(meta(padded), xy, ang)
+            match = "keypoints of image 0 are not on meta"
+        elif fault == "wrong_dtype":
+            call = lambda: kernels.brief_levels_kernel(
+                meta(padded), [64] * 3, meta([torch.cat(xy).to(torch.int64)])[0],
+                *meta([torch.cat(ang)] * 2))
+            match = "expected torch.int32"
+        elif fault == "non_contiguous":
+            call = lambda: kernels.brief_levels_kernel(
+                meta(padded)[:1], [64],
+                torch.empty((2, 64), dtype=torch.int32, device="meta").t(),
+                *meta([ang[0], ang[0]]))
+            match = "xy: expected a contiguous tensor"
+        elif fault == "keypoint_outside":
+            xy[1][5] = torch.tensor([int(padded[1].shape[1]) - 38, 3])
+            call = lambda: kernels.brief_descriptors_levels(padded, xy, ang)
+            match = "a keypoint of image 1 lies outside"
+        elif fault == "ragged_lists":
+            call = lambda: kernels.brief_descriptors_levels(padded, xy[:2], ang)
+            match = "3 images, 2 keypoint arrays"
+        else:
+            call = lambda: kernels.brief_levels_kernel(
+                meta(padded), [64, 64, 63], *meta([torch.cat(xy), torch.cat(ang),
+                                                   torch.cat(ang)]))
+            match = "do not describe 3 images and 192 keypoints"
+        with pytest.raises(ValueError, match=match):
+            call()
+        assert kernels.BRIEF_LEVEL.launches == 0
+
+    def test_image_tables_match_the_sources(self):
+        """The by-value image tables as ctypes lays them out are the
+        structs of the CUDA sources: 16 entries, the sizes nvcc gives."""
+        assert kernels.MAX_IMAGES == 16
+        assert kernels.ctypes.sizeof(kernels._FastImage) == 32
+        assert kernels.ctypes.sizeof(kernels._FastTable) == 16 * 32 + 8
+        assert kernels.ctypes.sizeof(kernels._BriefImage) == 16
+        assert kernels.ctypes.sizeof(kernels._BriefTable) == 16 * 16 + 8
+        for k, struct in ((kernels.FAST_SCORE, "FastTable"),
+                          (kernels.BRIEF_LEVEL, "BriefTable")):
+            with open(k.source_path) as f:
+                text = f.read()
+            assert "constexpr int kMaxImages = 16;" in text
+            assert f"const __grid_constant__ {struct} tab" in text
 
     def test_level_brief_rejects_keypoints_outside_the_level(self, canvas,
                                                              keypoints):
