@@ -14,7 +14,10 @@
    multi-image launch, and on awkward shapes (an image smaller than a
    halo, one column, one row, sizes just off a vector and a tile): max
    |diff| must be 0.  The canvas rBRIEF kernel on that frame's 4000 kept
-   keypoints; the per-level rBRIEF kernel on level 0, on the smallest
+   keypoints at 1, 2, 4 and 8 warps a block, with corner keypoints and an
+   empty list, beside an empty kernel on the same grid (its launch
+   floor) and again on the 8000 keypoints of a 4000-feature frame; the
+   per-level rBRIEF kernel on level 0, on the smallest
    level, on the frame's 16 images in one launch with each level's own
    keypoints, and with corner keypoints and an image without keypoints in
    the list: every word equal.  Each kernel is timed three ways beside its
@@ -56,6 +59,19 @@
    triangulated), fast_score and brief_level launched exactly once per
    frame, brief_canvas not at all.
 
+7. The pipelined schedule, the main path: ``System.track_stereo_async``
+   over the same 34 frames, ``flush_async``, ``shutdown``: 34 committed
+   poses, every frame ``OK``, no ``async:rescue`` event, more than one
+   keyframe, local BA ran, drift under 2.5% and ATE under max(2 x the
+   synchronous run's, 0.15 m), fast_score and brief_canvas launched
+   exactly once per frame, nothing left in flight, and no synchronizing
+   CUDA call inside a dispatch (PyTorch's sync debug mode: no read-back,
+   no upload from pageable memory).  Prints the
+   ``async.*`` and ``kf.*_dispatch`` / ``kf.*_apply`` timers and frames/s.
+   Then a kidnap: two frames of seeded noise, then frame 5 again; the
+   commit must rescue, tracking must break, and relocalization (BoW
+   candidates, EPnP) must bring the state back to ``OK`` within 0.5 m.
+
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 is the card's ``nvidia-smi`` name and power limit, and the one before
@@ -67,9 +83,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -224,6 +243,87 @@ def brief_words_err(desc_k, desc_t, what: str) -> float:
     return float((unpack_bits(desc_k) != unpack_bits(desc_t)).to(torch.float32).max())
 
 
+def check_brief_canvas(kp, what: str) -> dict:
+    """brief_canvas on one frame's kept keypoints: every word against the
+    twin at each block size the launch takes, the three clocks at the
+    shipped block size, ``graph_ms`` at 1, 2, 4 and 8 warps a block, and
+    the launch floor (an empty kernel on the same grid) beside them."""
+    n = kp.cxy.shape[0]
+    dev = kp.blur.device
+    cos, sin = (t.contiguous() for t in desc_ops.cos_sin(kp.angle))
+    twin = kernels.brief_descriptors_canvas_ref(kp.blur, kp.cxy, kp.angle)
+    err = brief_words_err(
+        kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle), twin,
+        f"brief_canvas ({what})")
+    by_warps = {}
+    for warps in (1, 2, 4, 8):
+        def launch(warps=warps):
+            return kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin, warps)
+        brief_words_err(launch(), twin, f"brief_canvas ({what}, {warps} warps a block)")
+        by_warps[str(warps)] = time_graph_ms(launch)
+    rec = record(
+        kernels.BRIEF_CANVAS, err,
+        clocks(lambda: kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin)),
+        time_ms(lambda: kernels.brief_canvas_gather(kp.blur, kp.cxy, cos, sin)),
+        brief_bound(n), f"canvas, {n} keypoints")
+    rec["floor_graph_ms"] = time_graph_ms(
+        lambda: kernels.brief_canvas_floor_kernel(dev, n))
+    rec["graph_ms_by_warps"] = by_warps
+    show(f"brief_canvas {what}", rec, "words equal")
+    log(f"brief_canvas {what}: launch floor (empty kernel, same grid) "
+        f"{rec['floor_graph_ms']:.5f} ms in a graph, so the body takes "
+        f"{rec['graph_ms'] - rec['floor_graph_ms']:.5f} ms; half the bound is "
+        f"reached at {2 * rec['bound_ms']:.5f} ms; graph_ms by warps a block "
+        f"{ {w: round(t, 5) for w, t in by_warps.items()} } (shipped: "
+        f"{kernels.BRIEF_CANVAS_WARPS})")
+    return rec
+
+
+def check_brief_canvas_edges(kp, device) -> None:
+    """Keypoints as close to the canvas' four corners as the pattern's
+    reach allows, and an empty keypoint list."""
+    hc, wc = kp.blur.shape
+    r = kernels.BRIEF_REACH
+    xy = torch.tensor([[r, r], [wc - r - 1, r], [r, hc - r - 1],
+                       [wc - r - 1, hc - r - 1]], dtype=torch.int32, device=device)
+    ang = torch.tensor([45.0, 135.0, 225.0, 315.0], device=device)
+    brief_words_err(kernels.brief_descriptors_canvas(kp.blur, xy, ang),
+                    kernels.brief_descriptors_canvas_ref(kp.blur, xy, ang),
+                    "brief_canvas (corner keypoints)")
+    none = kernels.brief_descriptors_canvas(kp.blur, xy[:0], ang[:0])
+    require(tuple(none.shape) == (0, 8) and none.dtype == torch.int32,
+            f"brief_canvas on no keypoints gave {tuple(none.shape)} {none.dtype}")
+    log("brief_canvas corner keypoints at the pattern's reach and an empty "
+        "keypoint list: words equal")
+
+
+def log_brief_canvas_sass() -> None:
+    """Count the global loads that brief_canvas starts before its first
+    vote (ballot), from the SASS of the built library: 8 pattern reads, the
+    keypoint's three and the lane's 16 samples should all precede it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("brief_canvas SASS: cuobjdump not found, order of loads not read")
+        return
+    dump = subprocess.run(
+        [tool, "-sass", kernels.BRIEF_CANVAS.library_path],
+        capture_output=True, text=True, timeout=120).stdout
+    sass = next((sec for sec in dump.split("Function :")
+                 if "brief_canvas_kernel" in sec.split("\n", 1)[0]), "")
+    ops = [ln.split("*/")[1].split()[0:2] for ln in sass.splitlines()
+           if ln.strip().startswith("/*") and "*/" in ln and ";" in ln]
+    names = [o[1] if o and o[0].startswith("@") and len(o) > 1 else (o[0] if o else "")
+             for o in ops]
+    votes = [i for i, nm in enumerate(names) if nm.startswith("VOTE")]
+    loads = [i for i, nm in enumerate(names) if nm.startswith("LDG")]
+    if not votes:
+        log(f"brief_canvas SASS: no VOTE among {len(names)} instructions read")
+        return
+    log(f"brief_canvas SASS: {sum(1 for i in loads if i < votes[0])} of "
+        f"{len(loads)} global loads come before the first of "
+        f"{len(votes)} votes ({len(names)} instructions)")
+
+
 def check_brief_level(padded_blur, xy, ang, level: int) -> None:
     err = brief_words_err(kernels.brief_descriptors_level(padded_blur, xy, ang),
                           desc_ops.brief_descriptors(padded_blur, xy, ang),
@@ -356,17 +456,16 @@ def check_kernels(seq, cfg, device) -> list:
     check_fast(imgs[last], f"level {last}")
     check_fast_awkward(device)
 
-    cos, sin = (t.contiguous() for t in desc_ops.cos_sin(kp.angle))
-    brief_err = brief_words_err(
-        kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle),
-        kernels.brief_descriptors_canvas_ref(kp.blur, kp.cxy, kp.angle),
-        "brief_canvas")
-    canvas_rec = record(
-        kernels.BRIEF_CANVAS, brief_err,
-        clocks(lambda: kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin)),
-        time_ms(lambda: kernels.brief_canvas_gather(kp.blur, kp.cxy, cos, sin)),
-        brief_bound(kp.cxy.shape[0]), f"canvas, {kp.cxy.shape[0]} keypoints")
-    show(f"brief_canvas {kp.cxy.shape[0]} keypoints", canvas_rec, "words equal")
+    canvas_rec = check_brief_canvas(kp, f"{kp.cxy.shape[0]} keypoints")
+    check_brief_canvas_edges(kp, device)
+    # 8000 keypoints a stereo frame (OrbConfig(n_features=4000)): two waves
+    # of warps on the card instead of one; a log line, not the path's record
+    orb_dense = dataclasses.replace(orb, n_features=2 * orb.n_features)
+    kp_dense = atlas.atlas_keypoints(left, right, orb_dense, levels_l, levels_r)
+    canvas_rec["dense"] = check_brief_canvas(
+        kp_dense, f"{kp_dense.cxy.shape[0]} keypoints (n_features="
+        f"{orb_dense.n_features})")
+    log_brief_canvas_sass()
 
     # every level image's keypoints, angles and padded blurred image, as
     # the per-level extractor makes them
@@ -408,6 +507,9 @@ def check_frame_against_cpu(seq, cfg, device) -> None:
 
 ATLAS_KERNELS = ("fast_score", "brief_canvas")
 STAGES = ("perframe.track", "kf.insert_total", "kf.maintain", "kf.local_ba")
+ASYNC_STAGES = ("perframe.track", "async.dispatch", "async.read", "async.commit",
+                "kf.insert_total", "kf.snapshot_read", "kf.maintain_dispatch",
+                "kf.maintain_apply", "kf.ba_dispatch", "kf.ba_apply")
 BA_STAGES = ("ba.assemble", "ba.solve")
 
 
@@ -515,28 +617,38 @@ def run_fused_chain(seq, cfg, device, snapshot) -> dict:
 
 
 def run_system(seq, cfg, device, n_frames: int, launches: dict,
-               unused: tuple, expected: tuple = None) -> dict:
-    """Phases 5 and 6: ``System.track_stereo`` over the first ``n_frames``
-    frames with loop closing off.  ``launches`` maps a kernel's name to
-    its launches per frame; kernels in ``unused`` must not
-    have launched; ``expected`` is the run's (keyframes, triangulated
-    landmarks), which exact kernels cannot change."""
-    which = f"System(use_atlas={cfg.orb.use_atlas})"
+               unused: tuple, expected: tuple = None,
+               pipelined: bool = False) -> dict:
+    """Phases 5 to 7: ``System.track_stereo`` (or, with ``pipelined``,
+    ``System.track_stereo_async`` and ``flush_async``) over the first
+    ``n_frames`` frames with loop closing off, then ``shutdown``.
+    ``launches`` maps a kernel's name to its launches per frame; kernels
+    in ``unused`` must not have launched; ``expected`` is the run's
+    (keyframes, triangulated landmarks), which exact kernels cannot
+    change.  The pipelined run also records, for every dispatch, the
+    synchronizing CUDA calls PyTorch reports inside it."""
+    which = f"System(use_atlas={cfg.orb.use_atlas}" + \
+        (", pipelined)" if pipelined else ")")
     system = System(cfg, device, keyframe_capacity=256,
                     enable_loop_closing=False)
+    syncs = watch_dispatch_syncs(system) if pipelined else None
+    track = system.track_stereo_async if pipelined else system.track_stereo
     kernels.reset_launch_counts()
-    states = []
     t_first = None
     t0 = time.perf_counter()
     for i in range(n_frames):
-        system.track_stereo(seq.left[i], seq.right[i], seq.timestamps[i])
-        states.append(system.state)
+        track(seq.left[i], seq.right[i], seq.timestamps[i])
         if t_first is None:
             torch.cuda.synchronize()
             t_first = time.perf_counter() - t0
+    if pipelined:
+        system.flush_async()
     system.shutdown()
     elapsed = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    # frame 0 initializes (state OK asserted by the keyframe checks below)
+    states = [st["state"] for st in system.stats]
+    require(len(states) == n_frames - 1, f"{which}: {len(states)} tracked frames")
 
     poses = system.corrected_trajectory()
     require(len(poses) == n_frames, f"{which}: a frame was not tracked")
@@ -559,7 +671,8 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
         f"{n_fused}, fallbacks to separate steps "
         f"{sum(1 for r in maintains if r['fallback'])}, launches {counts}")
     for label, times, n_of in (
-            [(k, system.times, system.time_counts) for k in STAGES]
+            [(k, system.times, system.time_counts)
+             for k in (ASYNC_STAGES if pipelined else STAGES)]
             + [(k, system.map.times, None) for k in BA_STAGES]):
         n = n_of[label] if n_of is not None else n_ba
         if n:
@@ -569,6 +682,11 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
     require(all(s == "OK" for s in states),
             f"{which}: frame states {sorted(set(states))}")
     require("sync:weak" not in system.events, f"{which}: weak tracking")
+    require("async:rescue" not in system.events, f"{which}: a frame was rescued")
+    if pipelined:
+        require(not system._async_q and not system._maint_pipe
+                and not system._maint_queue, f"{which}: work left in flight")
+        report_dispatch_syncs(which, syncs)
     require(drift < MAX_DRIFT, f"{which}: drift {drift:.4f} >= {MAX_DRIFT}")
     require(n_kfs > 1, f"{which}: {n_kfs} keyframes")
     require(n_ba >= 1, f"{which}: local BA never ran")
@@ -583,7 +701,73 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
                 f"{n_frames} frames, expected {per_frame} per frame")
     for name in unused:
         require(counts[name] == 0, f"{which}: {name} launched {counts[name]} times")
-    return dict(counts=counts, fps=fps)
+    return dict(counts=counts, fps=fps, ate=ate, system=system)
+
+
+def watch_dispatch_syncs(system) -> list:
+    """Wrap ``system._dispatch_chain`` so that every call runs under
+    PyTorch's sync debug mode; returns the list that collects, per
+    dispatch, where a synchronizing CUDA call was reported."""
+    collected = []
+    real = system._dispatch_chain
+
+    def watched(*args):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        collected.append([f"{os.path.relpath(w.filename)}:{w.lineno}"
+                          for w in caught if "ynchroniz" in str(w.message)])
+
+    system._dispatch_chain = watched
+    return collected
+
+
+def report_dispatch_syncs(which: str, syncs: list) -> None:
+    """Nothing may read back, or wait for the stream, inside a dispatch:
+    the frame's program has to stay in flight behind the host.  Fails with
+    the source lines PyTorch reports (a read-back, or an upload from
+    pageable memory, which waits for the stream's earlier work)."""
+    per_dispatch = [len(x) for x in syncs]
+    where = sorted({w for x in syncs for w in x})
+    log(f"  synchronizing CUDA calls inside _dispatch_chain: "
+        f"{min(per_dispatch)}..{max(per_dispatch)} a dispatch over "
+        f"{len(syncs)} dispatches{', from ' + str(where) if where else ''}")
+    require(not where, f"{which}: synchronizing calls inside the dispatch at {where}")
+
+
+def run_kidnap(seq, system, n_frames: int) -> None:
+    """After the pipelined run: two frames of seeded noise through
+    ``track_stereo_async`` destroy tracking (the commit hands the first to
+    the per-frame machine, the second goes there directly), then frame 5
+    again: relocalization (BoW candidates, EPnP RANSAC, projection rescue)
+    must bring the state back to ``OK`` within 0.5 m of the truth."""
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(0, 255, seq.left[0].shape).astype(np.float32)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        system.track_stereo_async(noise, noise, 0.0)
+    system.track_stereo_async(seq.left[5], seq.right[5], 99.0)
+    system.shutdown()
+    elapsed = time.perf_counter() - t0
+    states = [st["state"] for st in system.stats[n_frames - 1:]]
+    gt = np.linalg.inv(seq.poses_wc[5])
+    err = float(np.linalg.norm(system.Tcw[:3, 3] - gt[:3, 3]))
+    log(f"kidnap: states over the two noise frames and the return {states}, "
+        f"final state {system.state}, position error {err:.4f} m, relocalized "
+        f"at frame {system.last_reloc_frame} of {system.frame_id}, rescue "
+        f"events {sum(1 for e in system.events if e == 'async:rescue')}, "
+        f"{elapsed:.2f} s")
+    require(len(system.trajectory) == n_frames + 3, "kidnap: a frame was lost")
+    require("async:rescue" in system.events, "kidnap: no commit rescued a frame")
+    require("WEAK" in states, f"kidnap: noise did not break tracking: {states}")
+    require(system.last_reloc_frame >= n_frames,
+            "kidnap: relocalization did not answer")
+    require(system.state == "OK", f"kidnap: state {system.state}")
+    require(err < 0.5, f"kidnap: position error {err:.3f} m")
 
 
 def main() -> None:
@@ -634,12 +818,22 @@ def main() -> None:
     per_level = run_system(seq, cfg_levels, device, N_FRAMES_PER_LEVEL,
                            {"fast_score": 1, "brief_level": 1},
                            unused=("brief_canvas",), expected=(5, 859))
+    pipelined = run_system(seq, cfg, device, N_FRAMES,
+                           {"fast_score": 1, "brief_canvas": 1},
+                           unused=("brief_level",), pipelined=True)
+    ate_sync, ate_async = main_path["ate"], pipelined["ate"]
+    require(ate_async < max(2.0 * ate_sync, 0.15),
+            f"pipelined ATE {ate_async:.4f} m against {ate_sync:.4f} m synchronous")
+    run_kidnap(seq, pipelined["system"], N_FRAMES)
     log(f"frames/s on the card: Tracker {tracked['fps']:.3f}, "
         f"fused_track_chain_step {fused['fps']:.3f}, System "
-        f"{main_path['fps']:.3f}, System per level {per_level['fps']:.3f}")
+        f"{main_path['fps']:.3f}, System pipelined {pipelined['fps']:.3f} "
+        f"(ATE {ate_async:.4f} m against {ate_sync:.4f} m), System per level "
+        f"{per_level['fps']:.3f}")
 
-    # launches: each kernel's count from the System run of its own path
-    launches = dict(main_path["counts"])
+    # launches: each kernel's count from the System run of its own path;
+    # the main path is the pipelined schedule
+    launches = dict(pipelined["counts"])
     launches["brief_level"] = per_level["counts"]["brief_level"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]

@@ -1,7 +1,8 @@
 """Carry state across between the JAX package and this port.
 
-The system has no weights; its state is the configuration, the frames
-and the landmark store.  These functions turn the JAX package's values,
+The system has no weights; its state is the configuration, the frames,
+the map and, for a whole ``System``, the tracker's state between two
+frames (:func:`system_from_numpy`).  These functions turn the JAX package's values,
 taken as numpy arrays, into the port's values on a given device, and
 back to numpy.  Descriptor words are the one field whose type differs:
 uint32 in the JAX package, int32 with the same bits here, so they cross
@@ -13,6 +14,7 @@ Nothing here imports JAX: a JAX array becomes numpy through
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Mapping
 
@@ -23,9 +25,12 @@ from pyorbslam_tpu_torch.config import (
     BaConfig, CameraConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
 from pyorbslam_tpu_torch.optim.ba import BAGridProblem, BAProblem
+from pyorbslam_tpu_torch.place.keyframe_db import KeyFrameDatabase
 from pyorbslam_tpu_torch.place.vocabulary import Vocabulary
 from pyorbslam_tpu_torch.slam.frame import StereoFrame
+from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
+from pyorbslam_tpu_torch.slam.system import System
 
 MIRROR_FIELDS = ("pos", "desc", "normal", "dmin", "dmax", "alive")
 
@@ -163,3 +168,65 @@ def ring_from_numpy(arrays: Any, device: torch.device) -> tuple:
     """A JAX ``DeviceKFRing.arrays`` tuple (xy, octave, desc, u_right,
     depth, valid) -> the port's ring tensors on ``device``."""
     return tuple(tensor_from_numpy(a, device) for a in arrays)
+
+
+def system_from_numpy(src: Any, cfg: SlamConfig, device: torch.device) -> System:
+    """A JAX ``System`` between two frames -> the port's ``System`` on
+    ``device`` in the same state: vocabulary, map (landmarks, keyframes,
+    spanning tree, culled-keyframe anchors; the native index is rebuilt
+    from the observation table, so observation counts and covisibility are
+    recounted), keyframe database, keyframe ring and the tracker's state
+    (pose, velocity, last frame and its landmark bindings, trajectory and
+    relative-pose log, keyframe bookkeeping).  The source must have nothing
+    in flight (``flush_async()`` / ``shutdown()`` first); loop closing is
+    left off, as the port requires."""
+    if src._async_q or src._maint_queue or src._maint_pipe \
+            or getattr(src, "_pending_window", None) is not None:
+        raise ValueError("the source System has frames or mapping work in "
+                         "flight; flush it before carrying its state over")
+    voc = vocabulary_from_numpy(src.vocabulary) if src.vocabulary is not None \
+        else None
+    out = System(cfg, device, landmark_capacity=src.landmark_capacity,
+                 keyframe_capacity=src.keyframe_capacity,
+                 ba_every_n_kf=src.ba_every_n_kf,
+                 localization_only=src.localization_only,
+                 enable_loop_closing=False, vocabulary=voc)
+    m = out.map
+    m.landmarks = landmarks_from_numpy(src.map.landmarks)
+    m.keyframes = keyframes_from_numpy(src.map.keyframes)
+    m.parent = dict(src.map.parent)
+    m.children = {k: set(v) for k, v in src.map.children.items()}
+    m.dead_anchor = {k: (int(p), np.array(T, np.float32))
+                     for k, (p, T) in src.map.dead_anchor.items()}
+    m.rebuild_core()
+
+    if src.kfdb is not None:
+        out.kfdb = KeyFrameDatabase(voc)
+        for kf, bow in src.kfdb.bow.items():
+            out.kfdb.add(int(kf), dict(bow))
+    ring = src.kf_ring
+    if ring.arrays is not None:
+        out.kf_ring.arrays = ring_from_numpy(ring.arrays, device)
+        out.kf_ring.slot_of = dict(ring.slot_of)
+        out.kf_ring._kf_at = list(ring._kf_at)
+        out.kf_ring._next = ring._next
+    if src.local_mapper is not None:
+        out.local_mapper = LocalMapper(cfg, m, ring=out.kf_ring,
+                                       mirror_fn=out._landmark_mirror)
+
+    out.state = src.state
+    out.Tcw = np.array(src.Tcw, np.float32)
+    out.velocity = np.array(src.velocity, np.float32)
+    if src.last_frame is not None:
+        out.last_frame = frame_from_numpy(src.last_frame, device)
+        out.last_assign = np.array(src.last_assign, np.int32)
+    out.lm_created_kf = np.array(src.lm_created_kf, np.int32)
+    out.recent_lms = [np.array(a) for a in src.recent_lms]
+    out.last_kf_frame = src.last_kf_frame
+    out.last_reloc_frame = src.last_reloc_frame
+    out.frame_id = src.frame_id
+    out.trajectory = [np.array(T, np.float32) for T in src.trajectory]
+    out.frame_refs = [(int(r), np.array(T, np.float32))
+                      for r, T in src.frame_refs]
+    out.stats = copy.deepcopy(list(src.stats))
+    return out

@@ -28,18 +28,22 @@
 //    without keypoints is an entry like any other.  ~4000 slots are ~500
 //    blocks of 8 warps: the card is filled once instead of 16 times a
 //    sixth.
-//  * Each lane gathers its 16 samples where they lie, all loads of a lane
-//    independent, and __ballot_sync packs the words (brief_common.cuh:
-//    warp_descriptor, the body brief_canvas.cu runs too).  Staging the
-//    keypoint's 39x39 window in shared memory first, with loads or cp.async
-//    along image rows, was built and measured on an H100: it reads fewer
-//    sectors but makes 48 copies a lane before the first sample, and with
-//    every warp resident the gathers' latency is already hidden; it took
-//    1.6x the time (0.0107 against 0.0066 ms for a frame's 4000 keypoints)
-//    and is not kept.
-//  * 8 warps a block (4 measured slower), and the 4 KiB pattern copied to
-//    shared memory once a block.  __constant__ memory would serialise: the
-//    index differs in every lane.
+//  * A lane keeps its own eight pattern pairs in registers (16-byte loads
+//    from device memory, no shared memory and no block barrier), gathers its
+//    16 samples where they lie, all loads of a lane independent and all
+//    started before the first comparison, and __ballot_sync packs the words
+//    (brief_common.cuh: load_lane_pattern and warp_descriptor, the body
+//    brief_canvas.cu runs too).  Staging the keypoint's 39x39 window in
+//    shared memory first, with loads or cp.async along image rows, was built
+//    and measured on an H100: it reads fewer sectors but makes 48 copies a
+//    lane before the first sample, and with every warp resident the gathers'
+//    latency is already hidden; it took 1.6x the time (0.0107 against 0.0066
+//    ms for a frame's 4000 keypoints) and is not kept.
+//  * 8 warps a block, the size measured for this body when the block still
+//    filled shared memory with the pattern (4 measured slower then);
+//    brief_canvas.cu's launch takes the block size as an argument and
+//    chip_smoke.py times 1, 2, 4 and 8 warps on the same body.  __constant__
+//    memory for the pattern would serialise: the index differs in every lane.
 //  * Compare and bit pack stay in the kernel (__ballot_sync); the TPU
 //    form's one-hot selection matmul over an aligned 56x256 window is not
 //    carried over.  The exactness contract is brief_common.cuh's.
@@ -47,6 +51,7 @@
 
 constexpr int kMaxImages = 16;
 constexpr int kBorder = 19;  // reflect pad of a level image = the pattern's reach
+constexpr int kWarps = 8;    // keypoints per block, one warp each
 
 extern "C" {
 struct BriefImage {
@@ -62,25 +67,24 @@ struct BriefTable {
 
 namespace {
 
-__global__ void __launch_bounds__(32 * brief::kWarps)
+__global__ void __launch_bounds__(32 * kWarps)
 brief_levels_kernel(const __grid_constant__ BriefTable tab,
                     const int* __restrict__ xy, const float* __restrict__ cosv,
                     const float* __restrict__ sinv,
                     const float* __restrict__ pattern, int* __restrict__ out,
                     int n) {
-  __shared__ float pat[brief::kPatternFloats];
-  brief::load_pattern(pat, pattern);
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * brief::kWarps + warp;
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (k >= n) return;  // uniform across the warp
+  const brief::LanePattern lp = brief::load_lane_pattern(pattern, lane);
   int i = 0;
   while (i < tab.n - 1 && k >= tab.im[i + 1].first) ++i;
   // level (x, y) sits at (x + 19, y + 19) of the image padded by 19
+  const int2 p = __ldg(reinterpret_cast<const int2*>(xy) + k);
   const unsigned int mine = brief::warp_descriptor(
-      tab.im[i].img, tab.im[i].pitch, xy[2 * k] + kBorder,
-      xy[2 * k + 1] + kBorder, pat, cosv[k], sinv[k], lane);
-  if (lane < 8) out[8 * k + lane] = static_cast<int>(mine);
+      tab.im[i].img, tab.im[i].pitch, p.x + kBorder, p.y + kBorder, lp,
+      __ldg(cosv + k), __ldg(sinv + k), lane);
+  if (lane < brief::kWords) out[brief::kWords * k + lane] = static_cast<int>(mine);
 }
 
 }  // namespace
@@ -93,8 +97,8 @@ extern "C" int brief_level_launch(const BriefTable* tab, const int* xy,
                                   void* stream) {
   if (tab->n < 1 || tab->n > kMaxImages) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  dim3 block(32 * brief::kWarps);
-  dim3 grid((n + brief::kWarps - 1) / brief::kWarps);
+  dim3 block(32 * kWarps);
+  dim3 grid((n + kWarps - 1) / kWarps);
   brief_levels_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       *tab, xy, cosv, sinv, pattern, out, n);
   return static_cast<int>(cudaGetLastError());

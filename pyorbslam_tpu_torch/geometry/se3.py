@@ -110,9 +110,9 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
     batch = R.shape[:-2]
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(batch + (1, 4))
+    # made on the device: a list would be uploaded, and waited for, per call
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 3] = 1.0
     top = torch.cat([R, t[..., None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

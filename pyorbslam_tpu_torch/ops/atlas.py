@@ -262,8 +262,9 @@ def atlas_keypoints(
         cy = torch.where(va, ys[ti, :b], PAD)
         lx = (cx - (t.col0 + PAD)).to(torch.float32)
         ly = (cy - (t.row0 + PAD)).to(torch.float32)
-        s = torch.tensor(float(scale_factors[t.level]), dtype=torch.float32,
-                         device=dev)
+        # a Python scalar holding the float32 value: the same float32
+        # multiply as by a 0-dim tensor, with nothing to upload
+        s = float(np.float32(scale_factors[t.level]))
         per_img[t.image].append(dict(
             cxy=torch.stack([cx, cy], -1).to(torch.int32),
             xy0=torch.stack([lx * s, ly * s], -1),
@@ -302,7 +303,12 @@ def extract_features_atlas(
     ``orb.max_keypoints``; the tensors live on the images' device.
     """
     kp = atlas_keypoints(left, right, orb, levels_l, levels_r)
-    desc = kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle)
+    # No bounds check (and so no host read inside the frame's program): a
+    # kept keypoint lies where interior16 is set, PAD + DETECT_BORDER px
+    # inside its tile, and an empty slot is parked at (PAD, PAD); the
+    # pattern reaches PAD px.
+    desc = kernels.brief_descriptors_canvas(kp.blur, kp.cxy, kp.angle,
+                                            check_bounds=False)
 
     cap_total = orb.max_keypoints
     xy0, resp, ang, octv, va = kp.xy0, kp.response, kp.angle, kp.octave, kp.valid

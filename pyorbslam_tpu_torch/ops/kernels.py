@@ -10,7 +10,10 @@ Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
   (:func:`fast_score_maps`).  Twin:
   :func:`pyorbslam_tpu_torch.ops.fast.fast_score_map`, once per image.
 * ``brief_canvas`` (``csrc/brief_canvas.cu``), steered rBRIEF on the
-  blurred canvas (``OrbConfig.use_atlas=True``).  Twin:
+  blurred canvas (``OrbConfig.use_atlas=True``).  Its block size is an
+  argument of the launch (``BRIEF_CANVAS_WARPS`` here), and its library
+  also holds an empty kernel for the same grid
+  (:func:`brief_canvas_floor_kernel`, a measurement aid).  Twin:
   :func:`brief_descriptors_canvas_ref`.
 * ``brief_level`` (``csrc/brief_level.cu``), steered rBRIEF on the
   reflect-padded blurred level images of a frame in one launch
@@ -60,6 +63,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 BRIEF_REACH = 19   # max |rounded rotated pattern offset| on the canvas
+# Warps (keypoints) a block of the brief_canvas launch; the kernel takes any
+# block size, and chip_smoke.py times 1, 2, 4 and 8 on the card.
+BRIEF_CANVAS_WARPS = 8
 MAX_IMAGES = 16    # entries of a multi-image kernel's by-value image table
 
 
@@ -84,6 +90,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.replaces = replaces        # file:line of the TPU kernel
         self.launches = 0
+        self._lib = None
         self._fn = None
 
     @property
@@ -121,23 +128,32 @@ class CudaKernel:
             f.write(log)
         return log
 
+    def function(self, symbol: str, argtypes: list):
+        """A C launch function of this kernel's library (built and loaded
+        at first use); every one takes the stream last and returns the
+        CUDA error of its launch."""
+        if self._lib is None:
+            self.finish_build(self.start_build())
+            self._lib = ctypes.CDLL(self.library_path)
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def _entry(self):
         if self._fn is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(self.library_path)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.function(self.symbol, self.argtypes)
         return self._fn
 
-    def launch(self, device: torch.device, *args) -> None:
-        fn = self._entry()
+    def _call(self, fn, device: torch.device, *args) -> None:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = fn(*args, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
+
+    def launch(self, device: torch.device, *args) -> None:
+        self._call(self._entry(), device, *args)
         self.launches += 1
 
 
@@ -173,7 +189,7 @@ FAST_SCORE = CudaKernel(
 BRIEF_CANVAS = CudaKernel(
     "brief_canvas", "pyorbslam_tpu_torch/csrc/brief_canvas.cu",
     "brief_canvas_launch",
-    [_P, _I, _P, _P, _P, _P, _P, _I, _P],
+    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     replaces="pyorbslam_tpu/ops/pallas_kernels.py:327",
 )
 BRIEF_LEVEL = CudaKernel(
@@ -314,9 +330,11 @@ def _pattern_on(device: torch.device) -> torch.Tensor:
 
 
 def brief_canvas_kernel(blur_canvas: torch.Tensor, xy: torch.Tensor,
-                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Launch the brief_canvas kernel on CUDA tensors (no bounds check:
-    callers go through :func:`brief_descriptors_canvas`)."""
+                        cos: torch.Tensor, sin: torch.Tensor,
+                        warps: int = BRIEF_CANVAS_WARPS) -> torch.Tensor:
+    """Launch the brief_canvas kernel on CUDA tensors with ``warps`` warps
+    a block (no bounds check: callers go through
+    :func:`brief_descriptors_canvas`)."""
     dev = blur_canvas.device
     n = xy.shape[0]
     _check_cuda(blur_canvas, "blur_canvas", torch.float32, (None, None), dev)
@@ -327,8 +345,17 @@ def brief_canvas_kernel(blur_canvas: torch.Tensor, xy: torch.Tensor,
     BRIEF_CANVAS.launch(
         dev, blur_canvas.data_ptr(), blur_canvas.shape[1], xy.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), _pattern_on(dev).data_ptr(),
-        out.data_ptr(), n)
+        out.data_ptr(), n, warps)
     return out
+
+
+def brief_canvas_floor_kernel(device: torch.device, n: int,
+                              warps: int = BRIEF_CANVAS_WARPS) -> None:
+    """Launch an empty kernel on brief_canvas' grid for ``n`` keypoints:
+    what the card takes to start and retire that grid, the floor under the
+    kernel's own time.  A measurement aid; it counts as no launch."""
+    fn = BRIEF_CANVAS.function("brief_canvas_floor_launch", [_I, _I, _P])
+    BRIEF_CANVAS._call(fn, device, n, warps)
 
 
 def brief_descriptors_canvas_ref(
@@ -343,14 +370,21 @@ def brief_descriptors_canvas_ref(
 
 
 def brief_descriptors_canvas(
-    blur_canvas: torch.Tensor, xy: torch.Tensor, angle_deg: torch.Tensor
+    blur_canvas: torch.Tensor, xy: torch.Tensor, angle_deg: torch.Tensor,
+    check_bounds: bool = True,
 ) -> torch.Tensor:
     """Steered rBRIEF on the canvas: the CUDA kernel for CUDA tensors, the
     twin :func:`brief_descriptors_canvas_ref` for CPU tensors.  cos and
-    sin are computed here in torch, exactly as the twin computes them."""
+    sin are computed here in torch, exactly as the twin computes them.
+
+    The bounds check reads one flag back from the device, which makes the
+    host wait for everything queued before it.  A caller whose keypoints
+    keep the pattern's reach from the canvas edge by construction (the
+    atlas layout) passes ``check_bounds=False``."""
     if blur_canvas.device.type == "cpu":
         return brief_descriptors_canvas_ref(blur_canvas, xy, angle_deg)
-    _check_brief_bounds(blur_canvas, xy)
+    if check_bounds:
+        _check_brief_bounds(blur_canvas, xy)
     cos, sin = desc_ops.cos_sin(angle_deg)
     return brief_canvas_kernel(blur_canvas, xy, cos.contiguous(), sin.contiguous())
 

@@ -9,6 +9,11 @@ Port of the per-frame parts of ``pyorbslam_tpu/ops/matching.py``:
   (ORBMatcher.py:215-393): the grid query becomes a |dx|,|dy| < r mask
   over the full Q x N Hamming matrix, and conflicts keep the lowest
   distance per target feature;
+* :func:`match_by_bow` is ORBMatcher.search_by_BoW_kf_f
+  (ORBMatcher.py:21-118): the vocabulary-node buckets become an equality
+  mask over the full Hamming matrix; :func:`bow_match` and
+  :func:`bow_match_rot` are the relocalization and reference-keyframe
+  matchers built on it;
 * :func:`rotation_consistency_mask` is the 30-bin rotation histogram
   top-3 filter (ORBMatcher.py:16-19), with upstream's 0.1x cutoff.
 """
@@ -150,23 +155,101 @@ def match_by_projection(
         matched &= ~fail
 
     # conflict resolution: keep the lowest distance per target feature
-    # (jax.ops.segment_min as scatter_reduce "amin" over a BIG-filled
-    # buffer; only segments that received a query are read back)
-    n = f_xy.shape[0]
     eff_dist = torch.where(matched, best, torch.full_like(best, BIG))
-    per_target_best = torch.full((n,), BIG, dtype=eff_dist.dtype,
-                                 device=dist.device).scatter_reduce(
-        0, best_idx, eff_dist, "amin", include_self=True)
-    q_arange = torch.arange(best.shape[0], dtype=torch.int64, device=dist.device)
-    cand = torch.where(eff_dist == per_target_best[best_idx], q_arange,
-                       torch.full_like(q_arange, BIG))
-    winner_q = torch.full((n,), BIG, dtype=torch.int64,
-                          device=dist.device).scatter_reduce(
-        0, best_idx, cand, "amin", include_self=True)
-    matched &= winner_q[best_idx] == q_arange
+    matched &= _one_query_per_target(best_idx, eff_dist, f_xy.shape[0])
 
     match_idx = torch.where(matched, best_idx, torch.full_like(best_idx, -1))
     return match_idx.to(torch.int32), best, matched
+
+
+def _one_query_per_target(best_idx: torch.Tensor, eff_dist: torch.Tensor,
+                          n_targets: int) -> torch.Tensor:
+    """(Q,) bool: query q holds the lowest ``eff_dist`` among the queries
+    whose best target is ``best_idx[q]``; ties go to the lower query index.
+    The JAX package's two ``segment_min``s, as ``scatter_reduce("amin")``
+    into buffers filled with BIG and ``include_self=True``: every value is
+    at most BIG, so a segment's result is the minimum of what it received,
+    and a segment that received nothing is never read back."""
+    dev = best_idx.device
+    per_target = torch.full((n_targets,), BIG, dtype=eff_dist.dtype,
+                            device=dev).scatter_reduce(
+        0, best_idx, eff_dist, "amin", include_self=True)
+    q_arange = torch.arange(best_idx.shape[0], dtype=torch.int64, device=dev)
+    cand = torch.where(eff_dist == per_target[best_idx], q_arange,
+                       torch.full_like(q_arange, BIG))
+    winner = torch.full((n_targets,), BIG, dtype=torch.int64,
+                        device=dev).scatter_reduce(
+        0, best_idx, cand, "amin", include_self=True)
+    return winner[best_idx] == q_arange
+
+
+def match_by_bow(
+    q_desc_bits: torch.Tensor,  # (Q, 256) int8  (keyframe side)
+    q_pop: torch.Tensor,
+    q_node: torch.Tensor,       # (Q,) int32 vocabulary node at level L-4
+    q_active: torch.Tensor,     # (Q,) bool
+    f_desc_bits: torch.Tensor,  # (N, 256) frame side
+    f_pop: torch.Tensor,
+    f_node: torch.Tensor,       # (N,)
+    f_active: torch.Tensor,
+    ratio: float = 0.7,
+    max_dist_th: int = TH_LOW,
+    node_gate: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BoW-guided matching (ORBMatcher.search_by_BoW_kf_f:21-118): only
+    descriptor pairs sharing a vocabulary node are compared, with the
+    best/second-best ratio test at TH_LOW.  The node-bucket iteration of
+    the reference becomes an equality mask over the full distance matrix;
+    ``node_gate=False`` drops the bucket constraint (the buckets prune a
+    CPU search, they are not semantics).
+
+    Among equal distances the lowest feature index is the best match
+    (``jnp.argmin``'s first occurrence, made explicit as the minimum of
+    ``dist * N + column``), and of two queries on one feature the lower
+    distance, then the lower query index, keeps it.
+
+    Returns (match_idx (Q,) int32 [-1 = none], dist (Q,), matched (Q,))."""
+    dist = ham.hamming_matrix_bits(q_desc_bits, q_pop, f_desc_bits, f_pop)
+    mask = q_active[:, None] & f_active[None, :]
+    if node_gate:
+        mask = mask & (q_node[:, None] == f_node[None, :])
+    n = f_desc_bits.shape[0]
+    dist = torch.where(mask, dist, torch.full_like(dist, BIG)).to(torch.int64)
+    cols = torch.arange(n, dtype=torch.int64, device=dist.device)
+    key = dist * n + cols[None, :]
+    best_key = key.min(dim=1).values
+    best_idx = best_key % n
+    best = best_key // n
+    dist2 = torch.where(cols[None, :] == best_idx[:, None],
+                        torch.full_like(dist, BIG), dist)
+    second = dist2.min(dim=1).values
+    matched = (best <= max_dist_th) & (
+        best.to(torch.float32) < ratio * second.to(torch.float32))
+
+    # one query per target feature (keep the lowest distance)
+    eff = torch.where(matched, best, torch.full_like(best, BIG))
+    matched = matched & _one_query_per_target(best_idx, eff, n)
+    match_idx = torch.where(matched, best_idx, torch.full_like(best_idx, -1))
+    return match_idx.to(torch.int32), best.to(torch.int32), matched
+
+
+def bow_match(kf_desc, kf_node, q_active, f_bits, f_pop, f_node, f_valid):
+    """search_by_BoW from a keyframe's packed descriptors: the
+    relocalization candidate matcher."""
+    return match_by_bow(
+        ham.unpack_bits(kf_desc), ham.popcount(kf_desc), kf_node, q_active,
+        f_bits, f_pop, f_node, f_valid)
+
+
+def bow_match_rot(kf_desc, kf_node, q_active, f_bits, f_pop, f_node, f_valid,
+                  kf_angle, f_angle):
+    """search_by_BoW + rotation consistency: the reference-keyframe
+    fallback matcher (Tracking.py:329-356).  Returns (idx, matched)."""
+    idx, _, matched = bow_match(
+        kf_desc, kf_node, q_active, f_bits, f_pop, f_node, f_valid)
+    matched = rotation_consistency_mask(
+        kf_angle, f_angle, torch.clamp(idx, min=0), matched)
+    return idx, matched
 
 
 def rotation_consistency_mask(

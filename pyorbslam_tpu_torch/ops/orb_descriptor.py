@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from pyorbslam_tpu_torch.utils.host_read import device_constant
+
 HALF_PATCH_SIZE = 15
 PATCH_SIZE = 31
 BORDER = 19  # reflected border budget around each level (EDGE_THRESHOLD)
@@ -79,14 +81,15 @@ def rotated_offsets(angle_deg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 def cos_sin(angle_deg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 cos and sin of an angle in degrees (jnp.radians semantics:
     one multiply by float32 pi/180)."""
-    rad = angle_deg * torch.tensor(np.float32(np.pi / 180.0),
-                                   device=angle_deg.device)
+    # a Python scalar holding the float32 value: the product is the same
+    # float32 multiply, with nothing to upload
+    rad = angle_deg * float(np.float32(np.pi / 180.0))
     return torch.cos(rad), torch.sin(rad)
 
 
 def rotated_offsets_cs(a: torch.Tensor, b: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    pat = torch.as_tensor(brief_pattern(), dtype=torch.float32, device=a.device)
+    pat = device_constant(brief_pattern(), torch.float32, a.device)
     px, py = pat[None, :, 0], pat[None, :, 1]
     a = a[:, None]
     b = b[:, None]
@@ -113,8 +116,7 @@ def gather_patches(
 
 
 def _angle_deg(m01: torch.Tensor, m10: torch.Tensor) -> torch.Tensor:
-    ang = torch.atan2(m01, m10) * torch.tensor(np.float32(180.0 / np.pi),
-                                               device=m01.device)
+    ang = torch.atan2(m01, m10) * float(np.float32(180.0 / np.pi))
     return torch.where(ang < 0, ang + 360.0, ang)
 
 
@@ -167,8 +169,7 @@ def ic_angles_at(padded: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     x = xy[:, 0].long()
     y = xy[:, 1].long()
     dys = torch.arange(-hp, hp + 1, dtype=torch.int64, device=dev)
-    ds = torch.as_tensor(umax[np.abs(np.arange(-hp, hp + 1))], dtype=torch.int64,
-                         device=dev)
+    ds = device_constant(umax[np.abs(np.arange(-hp, hp + 1))], torch.int64, dev)
     rows = (y[:, None] + dys[None, :]) * W1                   # (N, 31)
     hi = rows + x[:, None] + ds[None, :] + 1
     lo = rows + x[:, None] - ds[None, :]

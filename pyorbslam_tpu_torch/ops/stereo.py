@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.ops import hamming as ham
+from pyorbslam_tpu_torch.utils.host_read import device_constant
 
 W_SAD = 5    # half window of the SAD patch (11x11)
 L_SLIDE = 5  # slide range +-5 px
@@ -38,11 +39,9 @@ def build_atlas(levels: List[torch.Tensor]) -> PyramidAtlas:
     offsets = np.cumsum([0] + [int(l.shape[0] * l.shape[1]) for l in levels[:-1]])
     return PyramidAtlas(
         flat=torch.cat([l.reshape(-1) for l in levels]),
-        offsets=torch.as_tensor(offsets, dtype=torch.int64, device=dev),
-        widths=torch.tensor([l.shape[1] for l in levels], dtype=torch.int64,
-                            device=dev),
-        heights=torch.tensor([l.shape[0] for l in levels], dtype=torch.int64,
-                             device=dev),
+        offsets=device_constant(offsets, torch.int64, dev),
+        widths=device_constant([l.shape[1] for l in levels], torch.int64, dev),
+        heights=device_constant([l.shape[0] for l in levels], torch.int64, dev),
     )
 
 
@@ -67,7 +66,9 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     count = mask.sum()
     lo = torch.clamp((count - 1) // 2, min=0)
     hi = torch.clamp(count // 2, min=0)
-    return 0.5 * vals[lo] + 0.5 * vals[hi]
+    # a gather: indexing with a 0-dim tensor would read it back to the host
+    mid = torch.gather(vals, 0, torch.stack([lo, hi]))
+    return 0.5 * mid[0] + 0.5 * mid[1]
 
 
 def match_stereo(

@@ -116,7 +116,7 @@ def _lm_rounds(
 
     eye6 = torch.eye(6, dtype=Tcw0.dtype, device=Tcw0.device)
     T = Tcw0
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=Tcw0.device)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=Tcw0.device)
     for _ in range(iters):
         e, J = stereo_residual_jacobian(T, Xw, obs, cam)
         chi2 = _chi2(e, inv_sigma2)

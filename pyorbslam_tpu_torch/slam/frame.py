@@ -20,6 +20,7 @@ from pyorbslam_tpu_torch.ops import stereo as stereo_ops
 from pyorbslam_tpu_torch.ops.atlas import extract_features_atlas
 from pyorbslam_tpu_torch.ops.extractor import extract_features_stereo
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
+from pyorbslam_tpu_torch.utils.host_read import device_constant
 
 
 class StereoFrame(NamedTuple):
@@ -62,8 +63,8 @@ def build_stereo_frame(
 
     atlas_l = stereo_ops.build_atlas(levels_l)
     atlas_r = stereo_ops.build_atlas(levels_r)
-    scale_factors = torch.as_tensor(orb.scale_factors, dtype=torch.float32,
-                                    device=left.device)
+    scale_factors = device_constant(orb.scale_factors, torch.float32,
+                                    left.device)
     u_right, depth = stereo_ops.match_stereo(
         lf.xy, lf.octave, lf.desc, lf.valid,
         rf.xy, rf.octave, rf.desc, rf.valid,

@@ -38,6 +38,7 @@ from pyorbslam_tpu_torch.ops.fast import topk_stable
 from pyorbslam_tpu_torch.ops.hamming import popcount, unpack_bits
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import _consts
+from pyorbslam_tpu_torch.utils.host_read import HostRead
 
 TRI_CAP = 512   # triangulation survivors read back per neighbor pair
 TRI_Q = 1024    # free-feature compaction width for the epipolar match
@@ -384,7 +385,7 @@ class LocalMapper:
 
         cam5, baseline, sf, s2 = self._tri_consts()
         mirror = self.mirror_fn()
-        handle = maintenance_ring_step(
+        handle = HostRead(maintenance_ring_step(
             *mirror, self.ring.arrays,
             int(slot1), nb_slots, self._dev(free1),
             self._dev(nb_free), self._dev(ks.Tcw[kf]), self._dev(nb_T),
@@ -392,7 +393,7 @@ class LocalMapper:
             self._dev(rev_ids),
             cam5, baseline, sf, s2,
             self.cfg, scale_factor=self.cfg.orb.scale_factor,
-        )
+        ))
         return dict(kf=kf, handle=handle, neighbors=neighbors, Ow1=Ow1,
                     targets=targets, fuse_ids=fuse_ids, rev_ids=rev_ids,
                     nb_pts=nb_pts, cur_pts=cur_pts, B=B, T=T, cap=cap)
@@ -405,7 +406,8 @@ class LocalMapper:
         kf = pend["kf"]
         B, T, cap = pend["B"], pend["T"], pend["cap"]
         neighbors, targets = pend["neighbors"], pend["targets"]
-        packed = pend["handle"].cpu().numpy()   # ONE host read
+        # ONE host read, started at dispatch: a frame later it has landed
+        packed = pend["handle"].numpy()
         nt = 6 * min(TRI_CAP, m.keyframes.n_features)
         tri_flat = packed[: B * nt].reshape(B, nt)
         fuse_m = packed[B * nt: B * nt + T * cap].reshape(T, cap)

@@ -44,6 +44,7 @@ from pyorbslam_tpu_torch.native.mapcore_ffi import MapCore
 from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import ba
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
+from pyorbslam_tpu_torch.utils.host_read import HostRead
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 COVIS_TH = 15
@@ -414,8 +415,10 @@ class SlamMap:
                 up(g_cam), up(g_uvrq), up(g_oct), up(g_act),
                 up(np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf], np.float32)),
                 up(inv_sigma2), iters1=iters1, iters2=iters2)
-            handle = _pack_ba_result(res.cam_Tcw, res.pnt_pos,
-                                     res.g_inlier.reshape(-1))
+            # the copy to the host starts here; a split caller reads it a
+            # frame later without a stall
+            handle = HostRead(_pack_ba_result(res.cam_Tcw, res.pnt_pos,
+                                              res.g_inlier.reshape(-1)))
             if not split and dev.type == "cuda":
                 # the synchronous schedule reads the result next; the wait
                 # belongs to the solve, not to the read
@@ -438,7 +441,7 @@ class SlamMap:
         poses/points, erase outliers, refresh landmark geometry."""
         C, P, O = pend["C"], pend["P"], pend["O"]
         with self._t("ba.read"):
-            out = pend["handle"].cpu().numpy()
+            out = pend["handle"].numpy()
         new_Tcw = out[: 16 * C].view(np.float32).reshape(C, 4, 4)
         new_pos = out[16 * C: 16 * C + 3 * P].view(np.float32).reshape(P, 3)
         g_size = int(np.prod(pend["g_shape"]))

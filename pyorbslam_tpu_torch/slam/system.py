@@ -1,25 +1,34 @@
 """System facade: the full SLAM pipeline (tracking + local mapping).
 
-Port of the synchronous schedule of ``pyorbslam_tpu/slam/system.py``.
-API parity with the reference System (System.py:20-168):
-``track_stereo``, ``save_trajectory_kitti``, ``reset``, ``shutdown``,
+Port of ``pyorbslam_tpu/slam/system.py``'s per-frame schedules.  API
+parity with the reference System (System.py:20-168): ``track_stereo``,
+``save_trajectory_kitti``, ``reset``, ``shutdown``,
 ``activate/deactivate_localization_mode``.  The reference's three threads
-become a synchronous interleaved schedule: each keyframe insertion
-immediately runs the local-mapping step (covisibility update, point
-culling, triangulation and fuse, local Schur BA, keyframe culling) before
-the next frame is tracked: same semantics, deterministic order, no locks.
+become one of two schedules on one host thread:
+
+* ``track_stereo``, synchronous and interleaved: each keyframe insertion
+  immediately runs the local-mapping step (covisibility update, point
+  culling, triangulation and fuse, local Schur BA, keyframe culling)
+  before the next frame is tracked: same semantics, deterministic order,
+  no locks;
+* ``track_stereo_async`` / ``flush_async``, pipelined: a frame's fused
+  tracking program is dispatched and its packed result row starts copying
+  to the host at once; the row is read and committed at the NEXT call, and
+  a committed keyframe's mapping work advances one device stage per
+  tracked frame behind the dispatch (``_run_maintenance_queue``).
+
+A frame that tracks weakly goes through the full per-frame state machine
+(``_track``): motion retry, BoW matching against the reference keyframe
+(``_track_reference_keyframe``), a wide-radius rescue and relocalization
+(``_relocalize``: BoW candidates, EPnP RANSAC, projection rescue).
 
 ``System(cfg, device)`` runs every device step on ``device``; nothing
 picks a device for the caller.
 
 Not carried yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` queue-1 item: the pipelined and windowed schedules
-(``track_stereo_async``, ``flush_async``, ``track_stereo_window``,
-``window_feed``, ``window_flush``: items 17b and 20), the weak-tracking
-fallbacks ``_track_reference_keyframe`` and ``_relocalize`` (item 18) and
-loop closing (``enable_loop_closing=True``, item 19).  A fallback that is
-not there raises; it never reports "no candidate", which would be a
-result.
+``ROADMAP.md`` queue-1 item: the windowed schedule
+(``track_stereo_window``, ``window_feed``, ``window_flush``: item 20) and
+loop closing (``enable_loop_closing=True``, item 19).
 """
 
 from __future__ import annotations
@@ -34,6 +43,11 @@ import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.config import SlamConfig
+from pyorbslam_tpu_torch.io.kitti import save_trajectory_kitti
+from pyorbslam_tpu_torch.ops import matching as match_ops
+from pyorbslam_tpu_torch.ops.hamming import popcount
+from pyorbslam_tpu_torch.optim import pose_opt
+from pyorbslam_tpu_torch.optim.epnp import epnp_ransac
 from pyorbslam_tpu_torch.place import vocabulary as vocab_mod
 from pyorbslam_tpu_torch.place.keyframe_db import KeyFrameDatabase
 from pyorbslam_tpu_torch.place.vocabulary import Vocabulary
@@ -47,11 +61,14 @@ from pyorbslam_tpu_torch.slam.kf_ring import DeviceKFRing
 from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import (
+    fused_track_chain_step,
     fused_track_step,
     kf_snapshot,
     local_track_step,
     motion_track_step,
+    unpack_bool_np,
 )
+from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 
@@ -177,7 +194,12 @@ class System:
         self._mirror_pending = np.empty(0, np.int32)  # sub-tolerance dirt
         self._frame_cache = None     # (frame, host snapshot) of the last pull
         self._vocab_cache = None     # (frame, (word, weight, node)) prefetch
-        self._snap_prefetch = None   # (frame, device kf_snapshot buffer)
+        self._snap_prefetch = None   # (frame, kf_snapshot HostRead)
+        # ---- pipelined per-frame (async) schedule state ----
+        self._async_q: list = []     # in-flight dispatch records (<= 1)
+        self._defer_maintenance = False  # commit in progress: queue KF work
+        self._maint_queue: list = []     # (kf, bow) awaiting mapping work
+        self._maint_pipe: list = []      # staged in-flight mapping items
         # schedule diagnostics; bounded, so long runs do not grow host
         # memory per event
         self.events = deque(maxlen=4096)
@@ -185,18 +207,25 @@ class System:
         self.time_counts = defaultdict(int)
 
     def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """A host array on the device; on CUDA through pinned memory and a
+        non-blocking copy, so an upload never makes the host wait for the
+        work queued before it."""
+        return upload(a, self.device)
 
     @contextlib.contextmanager
-    def _t(self, label: str):
+    def _t(self, label: str, sync: bool = True):
         """Wall-clock a pipeline stage into ``self.times``.  On a CUDA
         device the stage's queued work is waited for first, so the time
-        belongs to the stage that launched it."""
+        belongs to the stage that launched it; the stages of the
+        pipelined schedule (``sync=False``, and everything a pipelined
+        commit runs) exist to leave work in flight and are timed on the
+        host alone."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            if self.device.type == "cuda":
+            if sync and not self._defer_maintenance \
+                    and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.times[label] += time.perf_counter() - t0
             self.time_counts[label] += 1
@@ -214,23 +243,163 @@ class System:
         else:
             self._track_fused(left, right, timestamp)
         self.trajectory.append(self.Tcw.copy())
-        # relative-pose log: frame pose expressed in its reference KF so
-        # later BA corrections propagate to the whole trajectory
-        # (System.save_trajectory_kitti chaining, System.py:124-145)
+        self._append_frame_ref()
+        return self.Tcw
+
+    # ---------------- pipelined per-frame (async) schedule ----------------
+    #
+    # Each call, in order:
+    #   1. ENQUEUE the new frame's image upload (pinned, non-blocking: the
+    #      transfer streams while everything below runs);
+    #   2. COMMIT the frame dispatched last call: its packed row has been
+    #      copying to the host since dispatch, so the read does not stall;
+    #      the commit updates pose/state, decides and INSERTS a keyframe
+    #      (bindings + stereo landmarks + BoW registration), whose feature
+    #      snapshot was prefetched speculatively at dispatch;
+    #   3. DISPATCH this frame's fused tracking step against the map as
+    #      of the commit (same freshness as the synchronous path);
+    #   4. advance the committed keyframes' MAPPING work (triangulation,
+    #      fuse, local BA) one device stage each, queued behind the
+    #      tracking step: the reference's async Tracking / LocalMapping
+    #      split (System.py:58-64, LocalMapping.py:43-84); its pose
+    #      refinements fold into the in-flight frame at its commit.
+
+    def track_stereo_async(self, left, right, timestamp) -> np.ndarray:
+        """Feed one stereo pair into the pipelined schedule; returns the
+        pose of the last COMMITTED frame (one frame behind the feed;
+        call :meth:`flush_async` to commit the tail).  Falls back to the
+        synchronous per-frame machine until initialized or after a
+        tracking loss."""
+        if self.state not in ("OK", "MARGINAL") or self.map.keyframes.n == 0:
+            self.flush_async()
+            return self.track_stereo(left, right, timestamp)
+        left = self._dev(left)       # upload streams under the commit
+        right = self._dev(right)
+        if self._async_q:
+            self._commit_chain(self._async_q.pop(0))
+        if self.state in ("OK", "MARGINAL") and self.map.keyframes.n > 0:
+            self._dispatch_chain(left, right, timestamp)
+            # one device stage per in-flight keyframe: dispatches queue
+            # behind the tracking step; reads consume results dispatched
+            # a frame ago (already copied)
+            self._run_maintenance_queue(blocking=False)
+        else:
+            # the commit lost tracking: this frame goes through the
+            # synchronous rescue machine instead
+            self._run_maintenance_queue()
+            self.track_stereo(left, right, timestamp)
+        return self.Tcw
+
+    def flush_async(self):
+        """Commit every in-flight pipelined frame."""
+        while self._async_q:
+            self._commit_chain(self._async_q.pop(0))
+        self._run_maintenance_queue()
+
+    def _dispatch_chain(self, left, right, timestamp):
+        with self._t("async.dispatch", sync=False):
+            self._dispatch_chain_inner(left, right, timestamp)
+
+    def _dispatch_chain_inner(self, left, right, timestamp):
+        lm = self.map.landmarks
+        mirror = self._landmark_mirror()
+        local_ids = self._local_point_ids(self.last_assign)
+        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
+        p_ids = np.full(cap, -1, np.int32)
+        p_ids[: len(local_ids)] = local_ids
+
+        q_lm = lm.resolve(self.last_assign)
+        Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
+        row, frame = fused_track_chain_step(
+            left, right, *mirror,
+            self.last_frame, self._dev(q_lm),
+            self._dev(Tcw_pred), self._dev(self.Tcw),
+            self._dev(p_ids), self.cfg,
+        )
+        # the read-back overlaps the next commit and dispatch
+        row = HostRead(row)
+        # speculative keyframe-snapshot prefetch: if this frame becomes a
+        # keyframe at commit, its feature snapshot + BoW will already be
+        # on the host.  Only the frame IMMEDIATELY after a keyframe skips
+        # it (the JAX package's rule, its system.py:342)
+        if self.frame_id + 1 - self.last_kf_frame >= 1:
+            self._prefetch_snapshot(frame)
+        self._async_q.append(dict(
+            row=row, frame=frame, base=self.Tcw.copy(),
+            p_ids=p_ids, n_local=len(local_ids),
+            n_feat=int(q_lm.shape[0]), timestamp=timestamp,
+        ))
+
+    def _commit_chain(self, rec):
+        with self._t("async.commit", sync=False):
+            self._commit_chain_inner(rec)
+
+    def _commit_chain_inner(self, rec):
+        lm = self.map.landmarks
+        self.frame_id += 1
+        with self._t("async.read", sync=False):
+            out = rec["row"].numpy()
+        N, P = rec["n_feat"], len(rec["p_ids"])
+        stats = out[:5]
+        raw = out[5:21].copy().view(np.float32).reshape(4, 4)
+        n_matches, n_in_motion, n_in_local = (int(x) for x in stats[:3])
+
+        # deferred maintenance may have refined the pose this frame's
+        # prediction chained from (rec["base"]); rebase preserving the
+        # tracked relative motion.  base == self.Tcw in the common
+        # no-refinement case, making this exactly `raw`.
+        healthy = (n_matches >= 20 and n_in_motion >= 20
+                   and n_in_local >= 10 and bool(np.isfinite(raw).all()))
+        if not healthy:
+            # weak tracking: the full per-frame state machine (motion
+            # retry, BoW reference-KF fallback, wide rescue, reloc)
+            # takes this frame
+            self.events.append("async:rescue")
+            self._track(rec["frame"], rec["timestamp"])
+            self.trajectory.append(self.Tcw.copy())
+            self._append_frame_ref()
+            return
+        Tcw_i = np.ascontiguousarray(
+            raw @ np.linalg.inv(rec["base"]) @ self.Tcw, np.float32)
+
+        assign = lm.resolve(out[21: 21 + N])
+        assign = np.where(
+            (assign >= 0) & lm.alive[np.maximum(assign, 0)], assign, -1)
+        p_visible = unpack_bool_np(out[21 + N: 21 + N + P // 32], P)
+        vis_ids = rec["p_ids"][p_visible[:P]]
+        vis_ids = vis_ids[vis_ids >= 0]
+        lm.visible[vis_ids] += 1
+        found_ids = np.unique(assign[assign >= 0])
+        lm.found[found_ids] += 1
+        lm.visible[found_ids] += 1
+
+        tracked_close, non_tracked_close = int(stats[3]), int(stats[4])
+        self.state = "OK" if n_in_local >= 20 else "MARGINAL"
+        self.Tcw = Tcw_i
+        # keyframe mapping work is deferred past the next dispatch (the
+        # device tracks while the host runs it)
+        self._defer_maintenance = True
+        try:
+            self._finish_track(
+                rec["frame"], assign, n_matches, n_in_local,
+                tracked_close, non_tracked_close, rec["n_local"],
+                rec["timestamp"],
+            )
+        finally:
+            self._defer_maintenance = False
+        self.trajectory.append(self.Tcw.copy())
+        self._append_frame_ref()
+
+    def _append_frame_ref(self):
+        """Relative-pose log: the frame's pose expressed in its reference
+        KF, so later BA corrections propagate to the whole trajectory
+        (System.save_trajectory_kitti chaining, System.py:124-145)."""
         ref = self.map.keyframes.n - 1
         if ref >= 0:
             Tcr = self.Tcw @ np.linalg.inv(self.map.keyframes.Tcw[ref])
             self.frame_refs.append((ref, Tcr.astype(np.float32)))
         else:
             self.frame_refs.append((-1, self.Tcw.copy()))
-        return self.Tcw
-
-    def track_stereo_async(self, left, right, timestamp) -> np.ndarray:
-        raise _not_ported("System.track_stereo_async (pipelined schedule)",
-                          "17b")
-
-    def flush_async(self):
-        raise _not_ported("System.flush_async (pipelined schedule)", "17b")
 
     def track_stereo_window(self, lefts, rights, timestamps) -> np.ndarray:
         raise _not_ported("System.track_stereo_window (windowed schedule)",
@@ -241,9 +410,6 @@ class System:
 
     def window_flush(self) -> np.ndarray:
         raise _not_ported("System.window_flush (windowed schedule)", "20")
-
-    def _run_maintenance_queue(self, blocking: bool = True):
-        raise _not_ported("The deferred keyframe-maintenance queue", "17b")
 
     def corrected_trajectory(self) -> np.ndarray:
         """Per-frame Tcw with all keyframe corrections applied.  Frames
@@ -260,25 +426,18 @@ class System:
         return np.stack(out) if out else np.zeros((0, 4, 4), np.float32)
 
     def save_trajectory_kitti(self, path: str):
-        """KITTI 3x4 row-major format, one line per frame.  KITTI stores
-        camera->world, so each Tcw is inverted before writing: the same
-        Rwc = Rcw^T / twc = -Rwc tcw chaining the reference performs
-        (System.py:124-147)."""
-        with open(path, "w") as f:
-            for Tcw in self.corrected_trajectory():
-                Tcw = np.asarray(Tcw, dtype=np.float64)
-                Rwc = Tcw[:3, :3].T
-                twc = -Rwc @ Tcw[:3, 3]
-                row = np.hstack([Rwc, twc.reshape(3, 1)]).reshape(-1)
-                f.write(" ".join(f"{v:.9e}" for v in row) + "\n")
+        """KITTI 3x4 row-major camera->world format, one line per frame
+        (``io.kitti.save_trajectory_kitti``)."""
+        save_trajectory_kitti(path, self.corrected_trajectory())
 
     def activate_localization_mode(self):
-        """Freeze the map (reference System.py:106-112 stops LocalMapping)
-        and suppress keyframe creation.  In the synchronous schedule
-        nothing is in flight, so there is nothing to drain.  Odometry
+        """Freeze the map (reference System.py:106-112 stops LocalMapping):
+        drain in-flight frames and staged mapping work first so the frozen
+        map is consistent, then suppress keyframe creation.  Odometry
         survives unmapped excursions through the hybrid VO queries of the
         fused step (the reference's temporal VO points,
         Tracking.py:612-659)."""
+        self.flush_async()
         self.localization_only = True
 
     def deactivate_localization_mode(self):
@@ -286,9 +445,11 @@ class System:
 
     def shutdown(self):
         """Drain all in-flight work so every fed frame lands in the
-        trajectory (System.py:149-167 joins its threads).  The
-        synchronous schedule has none; on a CUDA device the queued
-        kernels are waited for.  Idempotent."""
+        trajectory (System.py:149-167 joins its threads): the pipelined
+        schedule's uncommitted frame and the staged keyframe-maintenance
+        queue; on a CUDA device the queued kernels are waited for.
+        Idempotent."""
+        self.flush_async()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -344,8 +505,7 @@ class System:
         def full_upload():
             host = tuple(getattr(lm, f)[:cap] for f in _MIRROR_FIELDS)
             # torch.tensor copies: the mirror must not alias the store
-            self._mirror = tuple(
-                torch.tensor(h, device=self.device) for h in host)
+            self._mirror = tuple(self._dev(torch.tensor(h)) for h in host)
             self._mirror_shadow = tuple(h.copy() for h in host)
             self._mirror_cap = cap
             # shadow now equals host: all dirt is accounted for
@@ -628,7 +788,7 @@ class System:
         buf = kf_snapshot(
             frame, voc._device_arrays(self.device), voc.k, voc.L,
             voc.feature_levels_up)
-        self._snap_prefetch = (frame, buf)
+        self._snap_prefetch = (frame, HostRead(buf))   # copy starts now
 
     def _frame_host(self, frame: StereoFrame) -> dict:
         """Host snapshot of a frame's per-feature arrays, pulled in ONE
@@ -637,7 +797,7 @@ class System:
             return self._frame_cache[1]
         if self._snap_prefetch is not None and self._snap_prefetch[0] is frame:
             with self._t("kf.snapshot_read"):
-                buf = self._snap_prefetch[1].cpu().numpy()
+                buf = self._snap_prefetch[1].numpy()
             self._snap_prefetch = None
             n = frame.capacity
             snap = unpack_frame_np(buf[: 16 * n], n)
@@ -690,7 +850,14 @@ class System:
 
         self._mirror_stale = True   # the store changed; re-upload lazily
         if run_ba:
-            self._kf_maintenance(kf, bow, deferred=False)
+            if self._defer_maintenance:
+                # pipelined schedule: the mapping work for this keyframe
+                # (triangulation / fuse / BA) runs AFTER the next frame's
+                # tracking step is dispatched: the reference's
+                # asynchronous LocalMapping lag (LocalMapping.py:43-84)
+                self._maint_queue.append((kf, bow))
+            else:
+                self._kf_maintenance(kf, bow, deferred=False)
         return kf
 
     def _kf_maintenance(self, kf: int, bow, deferred: bool):
@@ -726,16 +893,314 @@ class System:
                 kf, on_removed=lambda k: self.kfdb.erase(k))
         self._mirror_stale = True
 
-    # ---------------- weak-tracking fallbacks (not carried yet) ----------
+    def _run_maintenance_queue(self, blocking: bool = True):
+        """Advance the deferred per-keyframe mapping work.
+
+        Each keyframe's mapping pass is a little pipeline:
+        maintain-dispatch -> maintain-apply -> BA-dispatch -> BA-apply ->
+        culling.  The pipelined schedule advances every in-flight
+        keyframe ONE device stage per tracked frame (``blocking=False``):
+        a stage's read happens one frame after its dispatch, so it
+        overlaps the device's next tracking step.  The flush paths run
+        the pipe to completion (``blocking=True``).  Pose refinements
+        fold into the live pose as rigid deltas (the reference's async
+        LocalMapping lag, LocalMapping.py:43-84)."""
+        for kf, bow in self._maint_queue:
+            self._maint_pipe.append(dict(
+                kf=kf, bow=bow, stage="new", pend=None, ba_pend=None,
+                pre=None))
+        self._maint_queue = []
+        while self._maint_pipe:
+            for it in list(self._maint_pipe):
+                self._advance_maint_item(it)
+                if it["stage"] == "done":
+                    self._maint_pipe.remove(it)
+            if not blocking:
+                break
+
+    def _advance_maint_item(self, it):
+        kf = it["kf"]
+        lmapper = self.local_mapper
+        if it["stage"] == "new":
+            if lmapper is None:
+                it["stage"] = "maint_done"
+                return
+            with self._t("kf.maintain_dispatch", sync=False):
+                it["pend"] = lmapper.maintain_dispatch(kf)
+            if it["pend"] is None:
+                # ring rotated a participant out: separate-step fallback
+                with self._t("kf.maintain"):
+                    info = dict(new=lmapper.create_new_points(kf),
+                                fused=lmapper.fuse_neighbors(kf),
+                                fallback=True)
+                self.events.append(("maintain", kf, info))
+                self._mirror_stale = True
+                it["stage"] = "maint_done"
+                return
+            it["stage"] = "maint_dispatched"
+            return
+        if it["stage"] == "maint_dispatched":
+            # readiness-aware gap: the packed read has been copying since
+            # dispatch; if solve + transfer have not landed yet, defer
+            # ONE extra frame instead of blocking (a fixed extra wait
+            # compounds map staleness at high keyframe cadence)
+            if it["pend"]["handle"].pending() and not it.get("waited"):
+                it["waited"] = True
+                return
+            with self._t("kf.maintain_apply", sync=False):
+                info = lmapper.maintain_apply(it["pend"])
+            self.events.append(("maintain", kf, info))
+            self._mirror_stale = True
+            it["stage"] = "maint_done"
+            return
+        if it["stage"] == "maint_done":
+            if kf % self.ba_every_n_kf == 0:
+                it["pre"] = self.map.keyframes.Tcw[kf].copy()
+                with self._t("kf.ba_dispatch", sync=False):
+                    r = self.map.local_ba(kf, split=True)
+                if r.get("pending") is not None:
+                    it["ba_pend"] = r["pending"]
+                    it["stage"] = "ba_dispatched"
+                    return
+                self.events.append(("local_ba", kf, r))
+            it["stage"] = "post_ba"
+            return self._advance_maint_item(it)
+        if it["stage"] == "ba_dispatched":
+            # same readiness-aware deferral as the maintain stage
+            if it["ba_pend"]["handle"].pending() and not it.get("ba_waited"):
+                it["ba_waited"] = True
+                return
+            with self._t("kf.ba_apply", sync=False):
+                info = self.map.local_ba_apply(it["ba_pend"])
+            self.events.append(("local_ba", kf, info))
+            delta = self.map.keyframes.Tcw[kf] @ np.linalg.inv(it["pre"])
+            self.Tcw = (delta @ self.Tcw).astype(np.float32)
+            self._mirror_stale = True
+            it["stage"] = "post_ba"
+            return self._advance_maint_item(it)
+        if it["stage"] == "post_ba":
+            # (the JAX package's loop-closing stage would follow here;
+            # enable_loop_closing is refused at construction)
+            if lmapper is not None and kf % 4 == 0:
+                lmapper.cull_keyframes(
+                    kf, on_removed=lambda k: self.kfdb.erase(k))
+            self._mirror_stale = True
+            it["stage"] = "done"
+
+    # ---------------- reference-keyframe tracking ----------------
+
+    def _stereo_edges(self, frame: StereoFrame, assign: np.ndarray):
+        """Pose-optimization inputs over a frame's assigned features:
+        (Xw, obs (u, v, u_right), edge_active) as host arrays."""
+        xy = frame.xy.cpu().numpy()
+        u_right = frame.u_right.cpu().numpy()
+        Xw = self.map.landmarks.pos[np.maximum(assign, 0)]
+        obs = np.stack([xy[:, 0], xy[:, 1], u_right], 1)
+        edge_active = (assign >= 0) & (u_right > 0) & frame.valid.cpu().numpy()
+        return Xw, obs, edge_active
+
+    def _cam5(self) -> torch.Tensor:
+        c = self.cfg.camera
+        return self._dev(np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf], np.float32))
 
     def _track_reference_keyframe(self, frame: StereoFrame):
-        raise _not_ported(
-            "System._track_reference_keyframe (BoW fallback on weak "
-            "motion tracking)", "18")
+        """Tracking.track_reference_key_frame (Tracking.py:329-356): BoW-match
+        the current frame against its REFERENCE keyframe (the one its
+        relative-pose log anchors to: after relocalizing into an old map
+        region this is the old-region keyframe, not the newest one) with
+        the 0.7 ratio test at TH_LOW plus rotation consistency
+        (ORBMatcher.search_by_BoW_kf_f:21-118), seed the pose from the last
+        frame, run motion-only optimization; accepted at >= 10 inliers.
+        Falls back to the newest keyframe if the reference is unavailable.
+        Returns (Tcw, assign) or None."""
+        ks = self.map.keyframes
+        kf = ks.n - 1
+        if self.frame_refs and self.frame_refs[-1][0] >= 0:
+            ref, _ = self.map.resolve_ref(
+                self.frame_refs[-1][0], np.eye(4, dtype=np.float32))
+            if 0 <= ref < ks.n and ks.alive[ref]:
+                kf = ref
+        if kf < 0 or self.vocabulary is None:
+            return None
+        lm = self.map.landmarks
+        kf_lm = lm.resolve(ks.obs_lm[kf])
+        q_active = (kf_lm >= 0) & lm.alive[np.maximum(kf_lm, 0)]
+        if q_active.sum() < 15:
+            return None
+        _, _, node = self.vocabulary.transform(
+            frame.desc, levels_up=self.vocabulary.feature_levels_up)
+        idx, matched = match_ops.bow_match_rot(
+            self._dev(ks.kp_desc[kf]), self._dev(ks.kp_node[kf]),
+            self._dev(q_active),
+            frame.desc_bits, popcount(frame.desc), self._dev(node),
+            frame.valid,
+            self._dev(ks.kp_angle[kf]), frame.angle,
+        )
+        matched_np = matched.cpu().numpy()
+        if matched_np.sum() < 15:
+            return None
+        idx_np = idx.cpu().numpy()
+        qi = np.nonzero(matched_np)[0]
+        assign = np.full(frame.capacity, -1, np.int32)
+        assign[idx_np[qi]] = kf_lm[qi]
+
+        Xw, obs, edge_active = self._stereo_edges(frame, assign)
+        inv_sigma2 = np.asarray(self.cfg.orb.inv_level_sigma2)[
+            frame.octave.cpu().numpy()]
+        pres = pose_opt.pose_optimization(
+            self._dev(self.Tcw), self._dev(Xw), self._dev(obs),
+            self._dev(inv_sigma2), self._dev(edge_active), self._cam5(),
+            rounds=self.cfg.ba.pose_rounds,
+            iters=self.cfg.ba.pose_iters_per_round,
+        )
+        if int(pres.num_inliers) < 10:
+            return None
+        inl = pres.inliers.cpu().numpy()
+        assign = np.where(edge_active & ~inl, -1, assign).astype(np.int32)
+        return pres.Tcw.cpu().numpy(), assign
+
+    # ---------------- relocalization ----------------
 
     def _relocalize(self, frame: StereoFrame):
-        raise _not_ported(
-            "System._relocalize (relocalization after tracking loss)", "18")
+        """Tracking.relocalization (Tracking.py:661-763): BoW candidates ->
+        BoW matching (>=15) -> batched EPnP RANSAC -> pose optimization,
+        accepted at >=50 stereo inliers after a final refinement.
+        Returns (Tcw, assign) or None when no candidate holds."""
+        if self.kfdb is None or self.map.keyframes.n == 0:
+            return None
+        frame_valid = frame.valid.cpu().numpy()
+        word, wweight, node = self.vocabulary.transform(
+            frame.desc, levels_up=self.vocabulary.feature_levels_up)
+        qbow = self.vocabulary.bow_vector(word, wweight, frame_valid)
+        cands = self.kfdb.detect_relocalization_candidates(
+            qbow, self.map.covisible_neighbors
+        )[:5]
+        if not cands:
+            return None
+
+        f_pop = popcount(frame.desc)
+        f_node = self._dev(node)
+        f_xy_all = frame.xy.cpu().numpy()
+        f_oct_all = frame.octave.cpu().numpy()
+        c = self.cfg.camera
+        cam4 = self._dev(np.asarray([c.fx, c.fy, c.cx, c.cy], np.float32))
+        sigma2 = np.asarray(self.cfg.orb.level_sigma2)
+        inv_sigma2_feat = np.asarray(self.cfg.orb.inv_level_sigma2)[f_oct_all]
+        # the minimal sets are drawn from the frame's number, as the JAX
+        # package seeds its key; the two generators give other bits
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(max(self.frame_id, 0))
+        lm = self.map.landmarks
+
+        for kf in cands:
+            ks = self.map.keyframes
+            kf_lm = ks.obs_lm[kf]
+            q_active = kf_lm >= 0
+            idx, _, matched = match_ops.bow_match(
+                self._dev(ks.kp_desc[kf]), self._dev(ks.kp_node[kf]),
+                self._dev(q_active),
+                frame.desc_bits, f_pop, f_node, frame.valid,
+            )
+            matched = matched.cpu().numpy()
+            idx = idx.cpu().numpy()
+            if matched.sum() < 15:
+                continue
+            # correspondences: frame feature -> landmark world pos
+            qi = np.nonzero(matched)[0]
+            fi = idx[qi]
+            lm_ids = lm.resolve(kf_lm[qi])
+            ok = lm_ids >= 0
+            qi, fi, lm_ids = qi[ok], fi[ok], lm_ids[ok]
+            if len(qi) < 15:
+                continue
+            Xw = lm.pos[lm_ids]
+            f_xy = f_xy_all[fi]
+            f_oct = f_oct_all[fi]
+
+            # bucket-pad the correspondence count so the RANSAC program
+            # keeps a few shapes (64, 128, ...)
+            n = len(qi)
+            B = 64
+            while B < n:
+                B <<= 1
+            pad = B - n
+
+            def _p(a, fill=0.0):
+                return np.concatenate(
+                    [a, np.full((pad,) + a.shape[1:], fill, a.dtype)]) \
+                    if pad else a
+
+            res = epnp_ransac(
+                self._dev(_p(Xw)), self._dev(_p(f_xy)),
+                self._dev(_p(sigma2[f_oct], 1.0)),
+                self._dev(np.arange(B) < n), cam4, generator,
+            )
+            if not bool(res.ok):
+                continue
+            Tcw0 = np.eye(4, dtype=np.float32)
+            Tcw0[:3, :3] = res.R.cpu().numpy()
+            Tcw0[:3, 3] = res.t.cpu().numpy()
+
+            # motion-only refinement over the matched set
+            assign = np.full(frame.capacity, -1, np.int32)
+            assign[fi] = lm_ids
+            Xw_full, obs, edge_active = self._stereo_edges(frame, assign)
+            pres = pose_opt.pose_optimization(
+                self._dev(Tcw0), self._dev(Xw_full), self._dev(obs),
+                self._dev(inv_sigma2_feat), self._dev(edge_active),
+                self._cam5(),
+            )
+            n_good = int(pres.num_inliers)
+            if n_good < 10:
+                continue
+            inl = pres.inliers.cpu().numpy()
+            assign = np.where(edge_active & ~inl, -1, assign).astype(np.int32)
+            Tcw_cur = pres.Tcw.cpu().numpy()
+
+            # two-tier projection rescue (Tracking.py:724-755): project the
+            # candidate KF's landmarks with the coarse pose and re-match:
+            # first wide (th=10, ORBdist=100), then, if still marginal,
+            # tight (th=3, ORBdist=64); each tier re-runs pose optimization
+            # (folded into local_track_step).  Accept at >= 50 inliers.
+            kf_pts = lm.resolve(kf_lm)
+            kf_pts = np.unique(kf_pts[kf_pts >= 0])
+            kf_pts = kf_pts[lm.alive[kf_pts]]
+            cap = _cap_bucket(len(kf_pts), self.cfg.tracking.max_local_points)
+            p_ids = np.full(cap, -1, np.int32)
+            p_ids[: len(kf_pts)] = kf_pts[:cap]
+            p_safe = np.maximum(p_ids, 0)
+
+            def rescue(assign, Tcw_np, radius_mult, max_dist_th):
+                lres = local_track_step(
+                    frame,
+                    self._dev(lm.pos[np.maximum(assign, 0)]),
+                    self._dev(assign >= 0),
+                    self._dev(lm.pos[p_safe]),
+                    self._dev(lm.desc[p_safe]),
+                    self._dev(lm.normal[p_safe]),
+                    self._dev(lm.dmin[p_safe]),
+                    self._dev(lm.dmax[p_safe]),
+                    self._dev(p_ids >= 0),
+                    self._dev(Tcw_np),
+                    self.cfg,
+                    radius_mult=radius_mult, max_dist_th=max_dist_th,
+                )
+                feat_local = lres.feat_local.cpu().numpy()
+                tracked = lres.tracked.cpu().numpy()
+                new_assign = np.where(
+                    feat_local >= 0, p_ids[np.maximum(feat_local, 0)], assign
+                )
+                new_assign = np.where(tracked, new_assign, -1).astype(np.int32)
+                return int(lres.n_inliers), lres.Tcw.cpu().numpy(), new_assign
+
+            if n_good < 50:
+                n_good, Tcw_cur, assign = rescue(assign, Tcw_cur, 10.0, 100)
+                if 30 < n_good < 50:
+                    n_good, Tcw_cur, assign = rescue(assign, Tcw_cur, 3.0, 64)
+            if n_good < 50:
+                continue
+            return Tcw_cur, assign
+        return None
 
     # ---------------- helpers ----------------
 

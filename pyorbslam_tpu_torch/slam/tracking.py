@@ -39,6 +39,7 @@ from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import pose_opt
 from pyorbslam_tpu_torch.slam.frame import StereoFrame, build_stereo_frame, unproject
 from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
+from pyorbslam_tpu_torch.utils.host_read import device_constant
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 
@@ -82,7 +83,7 @@ def _consts(cfg: SlamConfig, device: torch.device) -> _Consts:
     c = cfg.camera
 
     def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return device_constant(np.asarray(x, np.float32), torch.float32, device)
 
     return _Consts(
         cam=f32([c.fx, c.fy, c.cx, c.cy, c.bf]),

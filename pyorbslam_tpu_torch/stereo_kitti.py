@@ -1,0 +1,110 @@
+"""KITTI stereo CLI of the PyTorch port (reference parity:
+stereo_kitti.py:12-59; the counterpart of the repository's
+``stereo_kitti.py``).
+
+Usage:
+    python3 -m pyorbslam_tpu_torch.stereo_kitti --pathToSequence <seq_dir> \
+        --pathToVocabulary <ORBvoc.txt or "auto"> \
+        --pathToSettings <KITTIxx.yaml> [--output CameraTrajectory.txt] \
+        [--async] [--device cuda]
+
+The sequence dir must contain image_2/, image_3/, times.txt (KITTI
+odometry layout).  Vocabulary "auto" (or a missing file) uses the shipped
+vocabulary asset, or trains a scene vocabulary from the first frame.
+
+``--device`` names the device every step runs on (default ``cuda``).
+Nothing falls back: with ``cuda`` and no CUDA device the command fails.
+Loop closing is not ported yet (ROADMAP.md queue 1, item 19), so the
+system runs with ``enable_loop_closing=False``; ``--window`` reaches the
+windowed schedule, which raises until item 20 lands.
+"""
+
+import argparse
+import os
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--pathToSequence", required=True)
+    ap.add_argument("--pathToVocabulary", default="auto")
+    ap.add_argument("--pathToSettings", required=True)
+    ap.add_argument("--output", default="CameraTrajectory.txt")
+    ap.add_argument("--maxFrames", type=int, default=0)
+    ap.add_argument("--window", type=int, default=0,
+                    help="track W frames per device dispatch "
+                         "(System.track_stereo_window); 0 = per frame")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="pipelined per-frame schedule "
+                         "(System.track_stereo_async)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of every step (default: cuda)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from pyorbslam_tpu_torch.config import SlamConfig
+    from pyorbslam_tpu_torch.io.kitti import iter_stereo, load_image_paths
+    from pyorbslam_tpu_torch.slam.system import System
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA device is available "
+            "(pass --device cpu to run on the CPU)")
+
+    cfg = SlamConfig.from_yaml(args.pathToSettings)
+
+    vocabulary = None
+    if args.pathToVocabulary != "auto" and os.path.exists(args.pathToVocabulary):
+        from pyorbslam_tpu_torch.place.vocabulary import Vocabulary
+
+        print(f"loading vocabulary {args.pathToVocabulary} ...")
+        vocabulary = Vocabulary.load_text(args.pathToVocabulary)
+
+    system = System(cfg, device, vocabulary=vocabulary,
+                    enable_loop_closing=False)
+
+    left_paths, _, times = load_image_paths(args.pathToSequence)
+    n = len(left_paths)
+    if args.maxFrames:
+        n = min(n, args.maxFrames)
+    print(f"tracking {n} frames from {args.pathToSequence} on {device}")
+
+    t_start = time.time()
+    if args.window:
+        buf = []
+        for i, (left, right, ts) in enumerate(iter_stereo(args.pathToSequence)):
+            if i >= n:
+                break
+            buf.append((left, right, ts))
+            if len(buf) == args.window:
+                system.track_stereo_window(*map(list, zip(*buf)))
+                buf = []
+                print(f"frame {i + 1}/{n}  state={system.state} "
+                      f"kfs={system.map.keyframes.n}")
+        for left, right, ts in buf:   # tail shorter than one window
+            system.track_stereo(left, right, ts)
+    else:
+        track = (system.track_stereo_async if args.async_mode
+                 else system.track_stereo)
+        for i, (left, right, ts) in enumerate(iter_stereo(args.pathToSequence)):
+            if i >= n:
+                break
+            track(left, right, ts)
+            if (i + 1) % 50 == 0:
+                st = system.stats[-1] if system.stats else {}
+                print(f"frame {i + 1}/{n}  state={system.state} "
+                      f"inliers={st.get('inliers', '-')} kfs={system.map.keyframes.n}")
+        if args.async_mode:
+            system.flush_async()
+    dt = time.time() - t_start
+
+    system.save_trajectory_kitti(args.output)
+    system.shutdown()
+    print(f"done: {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps); "
+          f"trajectory -> {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Where a frame of ``System.track_stereo`` goes on one NVIDIA GPU.
 
     python3 -m pyorbslam_tpu_torch.tools.profile_system [--frames 16] [--warm 8]
+                                                        [--pipelined]
 
 Runs the port's ``System`` (default configuration, loop closing off) over
 the first frames of the 1241x376 / 2000-feature synthetic sequence that
@@ -17,7 +18,8 @@ the first frames of the 1241x376 / 2000-feature synthetic sequence that
    ``--warm``: kernel launches and device kernel time per frame, the ten
    kernels with the most device time, and the device's idle share
    (1 - kernel time / wall time of the window; the profiler slows the
-   host, so the share is an upper bound).
+   host, so the share is an upper bound).  With ``--pipelined`` this run
+   goes through ``System.track_stereo_async``.
 
 Prints the card's ``nvidia-smi`` name and power limit first and one JSON
 object last.  It needs a CUDA device and fails without one.
@@ -127,18 +129,24 @@ def device_time_us(evt) -> float:
     raise RuntimeError("this torch.profiler reports no device time per event")
 
 
-def profiler_pass(seq, cfg, device, warm: int) -> dict:
+def profiler_pass(seq, cfg, device, warm: int, pipelined: bool = False) -> dict:
+    """``torch.profiler`` over frames ``warm``.. of a ``System`` run; with
+    ``pipelined`` through ``track_stereo_async`` (flushed inside the
+    traced window, so every traced frame's work is in it)."""
     from torch.profiler import ProfilerActivity, profile
 
     sysm = new_system(cfg, device)
+    track = sysm.track_stereo_async if pipelined else sysm.track_stereo
     n = seq.left.shape[0]
     for i in range(warm):
-        sysm.track_stereo(seq.left[i], seq.right[i], seq.timestamps[i])
+        track(seq.left[i], seq.right[i], seq.timestamps[i])
+    sysm.flush_async()
     torch.cuda.synchronize()
     kfs0, t0 = sysm.map.keyframes.n, time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(warm, n):
-            sysm.track_stereo(seq.left[i], seq.right[i], seq.timestamps[i])
+            track(seq.left[i], seq.right[i], seq.timestamps[i])
+        sysm.flush_async()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     frames = n - warm
@@ -164,6 +172,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
+    ap.add_argument("--pipelined", action="store_true",
+                    help="trace System.track_stereo_async instead of "
+                         "track_stereo (the stage times stay those of the "
+                         "synchronous path: a synced stage cannot pipeline)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_system needs a CUDA device; none is available")
@@ -186,8 +198,10 @@ def main() -> None:
             s = stages[name]
             print(f"  {name}: {s['ms_per_call']:.2f} ms/call x {s['calls']} "
                   f"= {s['ms_per_frame']:.2f} ms/frame", flush=True)
-    prof = profiler_pass(seq, cfg, device, args.warm)
-    print(f"profiler over the same frames: {prof['launches_per_frame']:.0f} "
+    prof = profiler_pass(seq, cfg, device, args.warm, args.pipelined)
+    print(f"profiler over the same frames"
+          f"{' (pipelined schedule)' if args.pipelined else ''}: "
+          f"{prof['launches_per_frame']:.0f} "
           f"launches/frame, {prof['kernel_ms_per_frame']:.2f} ms device kernel "
           f"time/frame, {prof['wall_ms_per_frame']:.1f} ms wall/frame, idle "
           f"share {prof['idle_share']:.4f}", flush=True)

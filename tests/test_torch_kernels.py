@@ -348,7 +348,8 @@ def test_imports_without_jax():
         "    importlib.import_module(n)\n"
         "want = ['slam.system', 'slam.slam_map', 'slam.local_mapping', 'slam.kf_ring',\n"
         "        'optim.ba', 'ops.triangulation', 'place.vocabulary', 'place.keyframe_db',\n"
-        "        'native.mapcore_ffi']\n"
+        "        'native.mapcore_ffi', 'optim.epnp', 'io.kitti', 'stereo_kitti',\n"
+        "        'utils.host_read']\n"
         "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"

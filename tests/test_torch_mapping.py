@@ -523,7 +523,10 @@ class TestSlamMap:
     def test_split_local_ba(self, port_map):
         kf = port_map.keyframes.n - 1
         r = port_map.local_ba(kf, split=True)
-        assert r["ran"] and isinstance(r["pending"]["handle"], torch.Tensor)
+        # the result is on its way to the host from the dispatch on; on the
+        # CPU it is there at once
+        assert r["ran"] and not r["pending"]["handle"].pending()
+        assert r["pending"]["handle"].numpy().dtype == np.int32
         done = port_map.local_ba_apply(r["pending"])
         assert done["ran"] and done["n_obs"] == r["n_obs"]
 

@@ -1,5 +1,7 @@
 """The PyTorch port's ``System`` (synchronous schedule) against the JAX
-package's on the cached synthetic sequence, loop closing off.
+package's on the cached synthetic sequence, loop closing off.  The
+pipelined schedule and the weak-tracking fallbacks are held in
+``tests/test_torch_async.py``.
 
 The two packages' descriptors differ in ~0.03% of their bits (IC-angle
 rounding, see ROADMAP.md queue 3), so the runs are not compared pose for
@@ -140,8 +142,7 @@ class TestSystemRun:
         r = atlas_runs
         assert set(r["states"]) == {"OK"}
         assert "sync:weak" not in r["port"].events
-        # the JAX run on the same sequence never reached a fallback
-        # either, so the port's missing ones were not needed
+        # the JAX run on the same sequence never reached a fallback either
         assert r["fallbacks"] == []
         assert len(r["port"].trajectory) == r["n"] == len(r["port"].frame_refs)
 
@@ -258,14 +259,9 @@ class TestModes:
         assert s.corrected_trajectory().shape == (0, 4, 4)
 
     NOT_PORTED = {
-        "track_stereo_async": ("17b", lambda s, im: s.track_stereo_async(im, im, 0.0)),
-        "flush_async": ("17b", lambda s, im: s.flush_async()),
-        "_run_maintenance_queue": ("17b", lambda s, im: s._run_maintenance_queue()),
         "track_stereo_window": ("20", lambda s, im: s.track_stereo_window([im], [im], [0.0])),
         "window_feed": ("20", lambda s, im: s.window_feed([im], [im], [0.0])),
         "window_flush": ("20", lambda s, im: s.window_flush()),
-        "_track_reference_keyframe": ("18", lambda s, im: s._track_reference_keyframe(None)),
-        "_relocalize": ("18", lambda s, im: s._relocalize(None)),
     }
 
     @pytest.mark.parametrize("name", sorted(NOT_PORTED))

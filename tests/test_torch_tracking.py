@@ -23,6 +23,7 @@ from pyorbslam_tpu.slam import frame as jframe
 from pyorbslam_tpu.slam import tracking as jtrack
 
 from pyorbslam_tpu_torch import convert
+from pyorbslam_tpu_torch.ops import hamming as tham
 from pyorbslam_tpu_torch.ops import matching as tmatch
 from pyorbslam_tpu_torch.optim import pose_opt as tpose
 from pyorbslam_tpu_torch.slam import tracking as ttrack
@@ -157,6 +158,54 @@ class TestMatching:
         np.testing.assert_array_equal(N(tidx), np.asarray(jidx))
         np.testing.assert_array_equal(N(tm), np.asarray(jm))
         np.testing.assert_array_equal(N(tdist), np.asarray(jdist))
+
+    @pytest.mark.parametrize("node_gate,ratio", [(True, 0.7), (True, 1.5),
+                                                 (False, 0.7), (False, 1.5)])
+    def test_match_by_bow_identical_with_ties(self, node_gate, ratio):
+        """search_by_BoW on descriptors drawn from 40 prototypes, so equal
+        distances and several queries on one feature are the rule: every
+        integer output equals the JAX package's (first column among equal
+        distances, lower distance then lower query index per feature)."""
+        rng = np.random.default_rng(11)
+        Q, F = 300, 400
+        base = rng.integers(0, 2 ** 32, (40, 8), dtype=np.uint64).astype(np.uint32)
+        qd = base[rng.integers(0, 40, Q)].copy()
+        fd = base[rng.integers(0, 40, F)].copy()
+        for i in np.nonzero(rng.random(Q) < 0.7)[0]:
+            qd[i, rng.integers(0, 8)] ^= np.uint32(1 << int(rng.integers(0, 32)))
+        qn = rng.integers(0, 5, Q).astype(np.int32)
+        fn = rng.integers(0, 5, F).astype(np.int32)
+        qa, fa = rng.random(Q) < 0.9, rng.random(F) < 0.9
+        jq, jf = jnp.asarray(qd), jnp.asarray(fd)
+        want = jmatch.match_by_bow(
+            jham.unpack_bits(jq), jham.popcount(jq), jnp.asarray(qn), jnp.asarray(qa),
+            jham.unpack_bits(jf), jham.popcount(jf), jnp.asarray(fn), jnp.asarray(fa),
+            ratio=ratio, node_gate=node_gate)
+        tq, tf = T(convert.desc_to_port(qd)), T(convert.desc_to_port(fd))
+        got = tmatch.match_by_bow(
+            tham.unpack_bits(tq), tham.popcount(tq), T(qn), T(qa),
+            tham.unpack_bits(tf), tham.popcount(tf), T(fn), T(fa),
+            ratio=ratio, node_gate=node_gate)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(N(w), N(g))
+        if ratio > 1.0:
+            assert int(N(got[2]).sum()) > 20     # the case is not empty
+        # the two matchers of the weak-tracking fallbacks, from packed words
+        idx, dist, matched = tmatch.bow_match(
+            tq, T(qn), T(qa), tham.unpack_bits(tf), tham.popcount(tf), T(fn), T(fa))
+        if node_gate and ratio == 0.7:
+            for w, g in zip(want, (idx, dist, matched)):
+                np.testing.assert_array_equal(N(w), N(g))
+        qang = rng.uniform(0, 360, Q).astype(np.float32)
+        fang = rng.uniform(0, 360, F).astype(np.float32)
+        ridx, rmatched = tmatch.bow_match_rot(
+            tq, T(qn), T(qa), tham.unpack_bits(tf), tham.popcount(tf), T(fn), T(fa),
+            T(qang), T(fang))
+        jkeep = jmatch.rotation_consistency_mask(
+            jnp.asarray(qang), jnp.asarray(fang), jnp.maximum(jnp.asarray(N(idx)), 0),
+            jnp.asarray(N(matched)))
+        np.testing.assert_array_equal(N(rmatched), N(jkeep))
+        np.testing.assert_array_equal(N(ridx), N(idx))
 
     def test_rotation_consistency_identical(self, jax_state, cfgs):
         args, *_ = self._queries(jax_state, cfgs)
