@@ -48,12 +48,14 @@
    frames, chained frame to frame, against a landmark mirror frozen after
    the tracker's first frame.
 5. The main path: ``System.track_stereo`` over the same 34 frames in the
-   default configuration (``use_atlas=True``, loop closing off): every
+   default configuration (``use_atlas=True``, loop closing on): every
    pose finite, every frame ``OK``, drift under 2.5%, 12 keyframes, local
-   BA ran, the maintenance step triangulated 2712 landmarks, the
+   BA ran, the maintenance step triangulated 2713 landmarks, the
    fast_score and brief_canvas kernels launched exactly once per frame,
-   brief_level not at all.  Prints frames/s and the stage times of
-   ``System.times``.
+   brief_level not at all; the loop stage ran on every keyframe and
+   closed nothing (the straight sequence never revisits a place).  Prints
+   frames/s and the stage times of ``System.times`` (``kf.loop`` and
+   ``kf.gba_slice`` among them) and the loop closer's ``detect`` calls.
 6. The per-level configuration (``use_atlas=False``) through ``System``
    over the first 12 frames: the same requirements (5 keyframes, 859
    triangulated), fast_score and brief_level launched exactly once per
@@ -66,11 +68,37 @@
    synchronous run's, 0.15 m), fast_score and brief_canvas launched
    exactly once per frame, nothing left in flight, and no synchronizing
    CUDA call inside a dispatch (PyTorch's sync debug mode: no read-back,
-   no upload from pageable memory).  Prints the
-   ``async.*`` and ``kf.*_dispatch`` / ``kf.*_apply`` timers and frames/s.
-   Then a kidnap: two frames of seeded noise, then frame 5 again; the
-   commit must rescue, tracking must break, and relocalization (BoW
-   candidates, EPnP) must bring the state back to ``OK`` within 0.5 m.
+   no upload from pageable memory): neither in the frame's dispatch
+   (``_dispatch_chain``) nor in the keyframe stages the non-blocking
+   maintenance queue dispatches (``LocalMapper.maintain_dispatch``,
+   ``SlamMap.local_ba(split=True)``).  The loop stage reads its own
+   results by design and is not watched.  Prints the ``async.*`` and
+   ``kf.*_dispatch`` / ``kf.*_apply`` timers and frames/s.  Then a kidnap:
+   two frames of seeded noise, then frame 5 again; the commit must
+   rescue, tracking must break, and relocalization (BoW candidates, EPnP)
+   must bring the state back to ``OK`` within 0.5 m.  Then the per-level
+   configuration pipelined over 12 frames under the same watch: 0
+   synchronizing calls, fast_score and brief_level once a frame.
+8. A loop at full width, pipelined: 1241x376, 2000 features,
+   ``generate_sequence(trajectory="loop", laps=1.15, seed=11)`` over 96
+   frames (the scene width is the generator's own for a loop, 2 x radius
+   + 12 m) through ``track_stereo_async``, ``flush_async``, ``shutdown``:
+   a pose and a state for every frame, finite poses, fast_score and
+   brief_canvas once a frame, the loop stage on every keyframe, nothing in
+   flight.  Logs every ``loop.*`` stage time, the Sim3
+   ladder's events, loops closed / rejected / fused and the ATE of the raw
+   and of the corrected trajectory.  No closure is required here (see
+   ``PERF.md``).
+9. The tier-1 loop sequence of ``tests/conftest.py::full_loop_run`` (512x160,
+   92 frames, 1000 features) through ``track_stereo``: at least one loop
+   closed, loop edges recorded, corrected ATE under 0.6 m
+   (``tests/test_loop_closing.py``'s gates); then a Sim3 6 m and 20 deg
+   off handed to ``correct`` must be rolled back; then global BA by the
+   ``cg`` engine against the dense engine on all live keyframes from the
+   same state (camera centres within 2 cm).
+
+The two loop sequences render in two worker processes while phases 2-7
+run on the card.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -81,7 +109,9 @@ that the per-kernel JSON record.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import multiprocessing
 import json
 import os
 import shutil
@@ -110,7 +140,12 @@ from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 N_FRAMES = 34
-N_FRAMES_PER_LEVEL = 12   # length of the use_atlas=False System run
+N_FRAMES_PER_LEVEL = 12   # length of the use_atlas=False System runs
+# the loop sequences: tests/conftest.py::full_loop_run's (laps > 1: the
+# revisit dwells past the start), at full width and at its own 512x160
+LOOP_SEQ = dict(trajectory="loop", laps=1.15, seed=11)
+N_LOOP_FRAMES = 96
+TIER1_LOOP = dict(n_frames=92, width=512, height=160, n_features=1000)
 WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
@@ -149,18 +184,33 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_sequence(n_frames: int = N_FRAMES):
-    seq = generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
-                            trajectory="straight", speed=0.8, seed=3)
-    cfg = SlamConfig(
+def config_of(seq, n_features: int) -> SlamConfig:
+    height, width = seq.left.shape[1:]
+    return SlamConfig(
         camera=CameraConfig(
             fx=float(seq.K[0, 0]), fy=float(seq.K[1, 1]),
             cx=float(seq.K[0, 2]), cy=float(seq.K[1, 2]),
-            width=WIDTH, height=HEIGHT, bf=seq.bf, th_depth=40.0,
+            width=width, height=height, bf=seq.bf, th_depth=40.0,
         ),
-        orb=OrbConfig(n_features=N_FEATURES),
+        orb=OrbConfig(n_features=n_features),
     )
-    return seq, cfg
+
+
+def make_sequence(n_frames: int = N_FRAMES):
+    seq = generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
+                            trajectory="straight", speed=0.8, seed=3)
+    return seq, config_of(seq, N_FEATURES)
+
+
+def start_loop_renders(pool):
+    """Render the two loop sequences in worker processes while the card
+    runs phases 2-7: (full width, tier-1) futures."""
+    full = pool.submit(generate_sequence, n_frames=N_LOOP_FRAMES, width=WIDTH,
+                       height=HEIGHT, **LOOP_SEQ)
+    small = pool.submit(generate_sequence, n_frames=TIER1_LOOP["n_frames"],
+                        width=TIER1_LOOP["width"], height=TIER1_LOOP["height"],
+                        **LOOP_SEQ)
+    return full, small
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -506,10 +556,12 @@ def check_frame_against_cpu(seq, cfg, device) -> None:
 
 
 ATLAS_KERNELS = ("fast_score", "brief_canvas")
-STAGES = ("perframe.track", "kf.insert_total", "kf.maintain", "kf.local_ba")
+STAGES = ("perframe.track", "kf.insert_total", "kf.maintain", "kf.local_ba",
+          "kf.loop", "kf.gba_slice")
 ASYNC_STAGES = ("perframe.track", "async.dispatch", "async.read", "async.commit",
                 "kf.insert_total", "kf.snapshot_read", "kf.maintain_dispatch",
-                "kf.maintain_apply", "kf.ba_dispatch", "kf.ba_apply")
+                "kf.maintain_apply", "kf.ba_dispatch", "kf.ba_apply", "kf.loop",
+                "kf.gba_slice")
 BA_STAGES = ("ba.assemble", "ba.solve")
 
 
@@ -619,9 +671,10 @@ def run_fused_chain(seq, cfg, device, snapshot) -> dict:
 def run_system(seq, cfg, device, n_frames: int, launches: dict,
                unused: tuple, expected: tuple = None,
                pipelined: bool = False) -> dict:
-    """Phases 5 to 7: ``System.track_stereo`` (or, with ``pipelined``,
+    """Phases 5 to 8: ``System.track_stereo`` (or, with ``pipelined``,
     ``System.track_stereo_async`` and ``flush_async``) over the first
-    ``n_frames`` frames with loop closing off, then ``shutdown``.
+    ``n_frames`` frames of ``seq`` in the default configuration (loop
+    closing on), then ``shutdown``.
     ``launches`` maps a kernel's name to its launches per frame; kernels
     in ``unused`` must not have launched; ``expected`` is the run's
     (keyframes, triangulated landmarks), which exact kernels cannot
@@ -629,8 +682,7 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
     synchronizing CUDA calls PyTorch reports inside it."""
     which = f"System(use_atlas={cfg.orb.use_atlas}" + \
         (", pipelined)" if pipelined else ")")
-    system = System(cfg, device, keyframe_capacity=256,
-                    enable_loop_closing=False)
+    system = System(cfg, device, keyframe_capacity=256)
     syncs = watch_dispatch_syncs(system) if pipelined else None
     track = system.track_stereo_async if pipelined else system.track_stereo
     kernels.reset_launch_counts()
@@ -679,10 +731,17 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
             log(f"  {label}: {1e3 * times[label] / n:.2f} ms each over {n} calls")
     log(f"  BA counters: {dict(system.map.counters)}; local BA sizes: "
         f"{[(r['n_cams'], r['n_points'], r['n_obs']) for r in ba_runs if r.get('ran')]}")
+    loops = log_loop_stage(which, system)
     require(all(s == "OK" for s in states),
             f"{which}: frame states {sorted(set(states))}")
     require("sync:weak" not in system.events, f"{which}: weak tracking")
     require("async:rescue" not in system.events, f"{which}: a frame was rescued")
+    require(system.loop_closer is not None, f"{which}: no loop closer")
+    require(loops["closed"] == 0,
+            f"{which}: a loop closed on a sequence that never revisits a place")
+    require(loops["calls"] == n_kfs - 1,
+            f"{which}: the loop stage ran {loops['calls']} times for "
+            f"{n_kfs} keyframes")
     if pipelined:
         require(not system._async_q and not system._maint_pipe
                 and not system._maint_queue, f"{which}: work left in flight")
@@ -704,39 +763,213 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
     return dict(counts=counts, fps=fps, ate=ate, system=system)
 
 
-def watch_dispatch_syncs(system) -> list:
-    """Wrap ``system._dispatch_chain`` so that every call runs under
-    PyTorch's sync debug mode; returns the list that collects, per
-    dispatch, where a synchronizing CUDA call was reported."""
-    collected = []
-    real = system._dispatch_chain
-
-    def watched(*args):
+def _sync_watched(real, bucket: list):
+    """``real`` run under PyTorch's sync debug mode; each call appends to
+    ``bucket`` the source lines of the synchronizing calls reported."""
+    def watched(*args, **kwargs):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                real(*args)
+                out = real(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        collected.append([f"{os.path.relpath(w.filename)}:{w.lineno}"
-                          for w in caught if "ynchroniz" in str(w.message)])
+        bucket.append([f"{os.path.relpath(w.filename)}:{w.lineno}"
+                       for w in caught if "ynchroniz" in str(w.message)])
+        return out
+    return watched
 
-    system._dispatch_chain = watched
+
+def watch_dispatch_syncs(system) -> dict:
+    """Watch every dispatch of the pipelined schedule for synchronizing
+    CUDA calls: the frame's (``_dispatch_chain``) and, inside the
+    non-blocking maintenance queue, each keyframe's maintenance dispatch
+    (``LocalMapper.maintain_dispatch``) and local-BA dispatch
+    (``SlamMap.local_ba(split=True)``).  The queue's flush
+    (``blocking=True``) and its loop stage, which read by design, are not
+    watched.  Returns the per-dispatch lists, keyed by stage."""
+    collected = dict(chain=[], maintain_dispatch=[], ba_dispatch=[])
+    system._dispatch_chain = _sync_watched(system._dispatch_chain,
+                                           collected["chain"])
+    real_queue = system._run_maintenance_queue
+
+    def queue(blocking: bool = True):
+        if blocking or system.local_mapper is None:
+            return real_queue(blocking)
+        lmapper, smap = system.local_mapper, system.map
+        real_ba = smap.local_ba
+        lmapper.maintain_dispatch = _sync_watched(
+            lmapper.maintain_dispatch, collected["maintain_dispatch"])
+        watched_ba = _sync_watched(real_ba, collected["ba_dispatch"])
+        smap.local_ba = lambda kf, split=False: (
+            watched_ba(kf, split=True) if split else real_ba(kf, split))
+        try:
+            return real_queue(blocking)
+        finally:
+            del lmapper.maintain_dispatch, smap.local_ba
+
+    system._run_maintenance_queue = queue
     return collected
 
 
-def report_dispatch_syncs(which: str, syncs: list) -> None:
+def report_dispatch_syncs(which: str, syncs: dict) -> None:
     """Nothing may read back, or wait for the stream, inside a dispatch:
     the frame's program has to stay in flight behind the host.  Fails with
     the source lines PyTorch reports (a read-back, or an upload from
     pageable memory, which waits for the stream's earlier work)."""
-    per_dispatch = [len(x) for x in syncs]
-    where = sorted({w for x in syncs for w in x})
-    log(f"  synchronizing CUDA calls inside _dispatch_chain: "
-        f"{min(per_dispatch)}..{max(per_dispatch)} a dispatch over "
-        f"{len(syncs)} dispatches{', from ' + str(where) if where else ''}")
-    require(not where, f"{which}: synchronizing calls inside the dispatch at {where}")
+    bad = []
+    for stage, per_call in syncs.items():
+        counts = [len(x) for x in per_call]
+        where = sorted({w for x in per_call for w in x})
+        log(f"  synchronizing CUDA calls inside {stage}: "
+            + (f"{min(counts)}..{max(counts)} a dispatch over {len(counts)} "
+               f"dispatches" if counts else "no dispatch")
+            + (f", from {where}" if where else ""))
+        bad += [f"{stage}: {w}" for w in where]
+    require(bool(syncs["chain"]), f"{which}: no frame was dispatched")
+    require(not bad, f"{which}: synchronizing calls inside a dispatch at {bad}")
+
+
+def log_loop_stage(which: str, system) -> dict:
+    """The loop stage of a run: calls, closures, the loop closer's stage
+    times and its Sim3 ladder's events."""
+    lc = system.loop_closer
+    calls = [e for e in system.events if isinstance(e, tuple) and e[0] == "loop"]
+    if lc is None:
+        return dict(calls=len(calls), closed=0)
+    ladder = [e for e in lc.events if isinstance(e, tuple)]
+    checks = [e for e in lc.events if isinstance(e, str)]
+    log(f"  loop stage ({which}): {len(calls)} calls, loops closed "
+        f"{lc.n_loops_closed}, rejected {lc.n_loops_rejected}, fused "
+        f"{lc.n_loops_fused}, loop edges {dict(system.map.loop_edges)}")
+    for label, t in sorted(lc.times.items()):
+        log(f"    {label}: {1e3 * t:.2f} ms in all")
+    log(f"    Sim3 ladder events (kf, candidate, stage, count): {ladder}")
+    if checks:
+        log(f"    {checks}")
+    return dict(calls=len(calls), closed=lc.n_loops_closed)
+
+
+def loop_ates(system, seq) -> tuple:
+    """ATE of the raw per-frame poses and of the corrected trajectory."""
+    gt = seq.poses_wc[: len(system.trajectory)]
+    raw = ate_rmse(np.linalg.inv(np.stack(system.trajectory).astype(np.float64)), gt)
+    corr = ate_rmse(np.linalg.inv(system.corrected_trajectory().astype(np.float64)), gt)
+    return raw, corr
+
+
+def run_loop_full_width(seq, device) -> dict:
+    """Phase 8: the full-width loop sequence through the pipelined
+    schedule, loop closing on."""
+    n = seq.left.shape[0]
+    which = f"loop {WIDTH}x{HEIGHT} x {n} frames, pipelined"
+    system = System(config_of(seq, N_FEATURES), device, keyframe_capacity=256)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        system.track_stereo_async(seq.left[i], seq.right[i], seq.timestamps[i])
+    system.flush_async()
+    system.shutdown()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    states = [st["state"] for st in system.stats]
+    ate_raw, ate_corr = loop_ates(system, seq)
+    log(f"{which}: {elapsed:.2f} s ({n / elapsed:.3f} frames/s with the first "
+        f"frame), keyframes {system.map.keyframes.n}, landmarks alive "
+        f"{int(system.map.landmarks.alive.sum())}, states "
+        f"{ {st: states.count(st) for st in set(states)} }, rescues "
+        f"{sum(1 for e in system.events if e == 'async:rescue')}, ATE raw "
+        f"{ate_raw:.4f} m, corrected {ate_corr:.4f} m over "
+        f"{np.linalg.norm(np.diff(seq.poses_wc[:, :3, 3], axis=0), axis=1).sum():.2f} m, "
+        f"launches {counts}")
+    for label in ASYNC_STAGES:
+        k = system.time_counts[label]
+        if k:
+            log(f"  {label}: {1e3 * system.times[label] / k:.2f} ms each over {k} calls")
+    loops = log_loop_stage(which, system)
+    require(len(system.trajectory) == n and len(states) == n - 1,
+            f"{which}: a frame was not tracked")
+    require(bool(np.isfinite(system.corrected_trajectory()).all()),
+            f"{which}: non-finite pose")
+    require(not system._async_q and not system._maint_pipe
+            and not system._maint_queue, f"{which}: work left in flight")
+    require(loops["calls"] == system.map.keyframes.n - 1,
+            f"{which}: the loop stage ran {loops['calls']} times")
+    for name in ATLAS_KERNELS:
+        require(counts[name] == n, f"{which}: {name} launched {counts[name]} "
+                                   f"times over {n} frames")
+    return dict(ate_raw=ate_raw, ate_corr=ate_corr, closed=loops["closed"])
+
+
+def run_loop_tier1(seq, device) -> dict:
+    """Phase 9: tests/conftest.py::full_loop_run's sequence and System
+    through ``track_stereo``; the JAX package's loop gates, the roll-back
+    of a garbage Sim3, and global BA's cg engine against its dense one."""
+    n = seq.left.shape[0]
+    which = f"loop 512x160 x {n} frames"
+    system = System(config_of(seq, TIER1_LOOP["n_features"]), device)
+    t0 = time.perf_counter()
+    for i in range(n):
+        system.track_stereo(seq.left[i], seq.right[i], seq.timestamps[i])
+    system.shutdown()
+    elapsed = time.perf_counter() - t0
+    lc = system.loop_closer
+    ate_raw, ate_corr = loop_ates(system, seq)
+    weak = sum(1 for st in system.stats if st["inliers"] < 10)
+    log(f"{which}: {elapsed:.2f} s ({n / elapsed:.3f} frames/s), keyframes "
+        f"{system.map.keyframes.n}, ATE raw {ate_raw:.4f} m, corrected "
+        f"{ate_corr:.4f} m, frames under 10 inliers {weak}")
+    for label in STAGES:
+        k = system.time_counts[label]
+        if k:
+            log(f"  {label}: {1e3 * system.times[label] / k:.2f} ms each over {k} calls")
+    loops = log_loop_stage(which, system)
+    require(loops["closed"] >= 1, f"{which}: no loop closed")
+    require(any(v for v in system.map.loop_edges.values()),
+            f"{which}: no loop edge recorded")
+    require(ate_corr < 0.6, f"{which}: corrected ATE {ate_corr:.4f} m >= 0.6 m")
+
+    # tests/test_loop_closing.py::TestCorrectionAcceptGate on this state
+    ks, lm = system.map.keyframes, system.map.landmarks
+    kf = ks.n - 1
+    pre_Tcw = ks.Tcw[: ks.n].copy()
+    pre_closed, pre_rejected = lc.n_loops_closed, lc.n_loops_rejected
+    bad = ks.Tcw[kf].copy()
+    c, s = np.cos(0.35), np.sin(0.35)
+    bad[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32) @ bad[:3, :3]
+    bad[0, 3] += 6.0
+    lc.correct(kf, 0, (bad[:3, :3].copy(), bad[:3, 3].copy(), 1.0), match_map={})
+    delta = float(np.abs(ks.Tcw[: ks.n] - pre_Tcw).max())
+    log(f"  garbage Sim3 at keyframe {kf}: {lc.events[-1]}, rejected "
+        f"{lc.n_loops_rejected - pre_rejected}, largest pose change {delta:.2e}")
+    require(lc.n_loops_rejected == pre_rejected + 1 and lc.n_loops_closed == pre_closed,
+            f"{which}: the garbage Sim3 was not rejected")
+    require(delta < 1e-4, f"{which}: geometry not restored ({delta})")
+
+    # global BA: the cg engine against the dense one from the same state
+    live = [k for k in range(ks.n) if ks.alive[k]]
+    pnt = system.map.core.observed_landmarks(lm.n)
+    snap_Tcw, snap_pos = ks.Tcw[: ks.n].copy(), lm.pos[: lm.n].copy()
+    out = {}
+    for engine in ("dense", "cg"):
+        ks.Tcw[: ks.n], lm.pos[: lm.n] = snap_Tcw, snap_pos
+        t0 = time.perf_counter()
+        info = system.map._run_ba(live, len(live), pnt, 2, 0, False, engine=engine)
+        out[engine] = (ks.Tcw[: ks.n].copy(), time.perf_counter() - t0, info)
+    centres = {e: -np.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3])
+               for e, (T, _, _) in out.items()}
+    gap = float(np.linalg.norm(centres["cg"] - centres["dense"], axis=1).max())
+    moved = float(np.linalg.norm(
+        centres["dense"] + np.einsum("kji,kj->ki", snap_Tcw[:, :3, :3],
+                                     snap_Tcw[:, :3, 3]), axis=1).max())
+    log(f"  global BA, 2 iterations over {len(live)} live keyframes, "
+        f"{out['dense'][2].get('n_points')} points, {out['dense'][2].get('n_obs')} "
+        f"observations: dense {1e3 * out['dense'][1]:.1f} ms, cg "
+        f"{1e3 * out['cg'][1]:.1f} ms; largest camera move {moved:.4f} m, "
+        f"cg against dense {gap:.5f} m")
+    require(out["dense"][2]["ran"] and out["cg"][2]["ran"], f"{which}: a BA did not run")
+    require(gap < 0.02, f"{which}: cg and dense global BA differ by {gap:.4f} m")
+    return dict(ate_corr=ate_corr, closed=loops["closed"])
 
 
 def run_kidnap(seq, system, n_frames: int) -> None:
@@ -796,6 +1029,19 @@ def main() -> None:
     mapcore_ffi.build()
     log(f"map core built in {time.perf_counter() - t0:.2f} s")
 
+    pool = None
+    if not kernels_only:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        run_phases(device, smi, kernels_only, pool)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
+    loop_renders = start_loop_renders(pool) if pool is not None else None
     t0 = time.perf_counter()
     seq, cfg = make_sequence(2 if kernels_only else N_FRAMES)
     cfg_levels = dataclasses.replace(
@@ -814,7 +1060,7 @@ def main() -> None:
     fused = run_fused_chain(seq, cfg, device, tracked["snapshot"])
     main_path = run_system(seq, cfg, device, N_FRAMES,
                            {"fast_score": 1, "brief_canvas": 1},
-                           unused=("brief_level",), expected=(12, 2712))
+                           unused=("brief_level",), expected=(12, 2713))
     per_level = run_system(seq, cfg_levels, device, N_FRAMES_PER_LEVEL,
                            {"fast_score": 1, "brief_level": 1},
                            unused=("brief_canvas",), expected=(5, 859))
@@ -825,11 +1071,23 @@ def main() -> None:
     require(ate_async < max(2.0 * ate_sync, 0.15),
             f"pipelined ATE {ate_async:.4f} m against {ate_sync:.4f} m synchronous")
     run_kidnap(seq, pipelined["system"], N_FRAMES)
+    per_level_async = run_system(seq, cfg_levels, device, N_FRAMES_PER_LEVEL,
+                                 {"fast_score": 1, "brief_level": 1},
+                                 unused=("brief_canvas",), pipelined=True)
     log(f"frames/s on the card: Tracker {tracked['fps']:.3f}, "
         f"fused_track_chain_step {fused['fps']:.3f}, System "
         f"{main_path['fps']:.3f}, System pipelined {pipelined['fps']:.3f} "
         f"(ATE {ate_async:.4f} m against {ate_sync:.4f} m), System per level "
-        f"{per_level['fps']:.3f}")
+        f"{per_level['fps']:.3f}, pipelined {per_level_async['fps']:.3f}")
+
+    t0 = time.perf_counter()
+    full_seq, small_seq = (f.result() for f in loop_renders)
+    log(f"loop sequences rendered ({time.perf_counter() - t0:.1f} s waited for)")
+    full = run_loop_full_width(full_seq, device)
+    tier1 = run_loop_tier1(small_seq, device)
+    log(f"loops: full width closed {full['closed']}, ATE corrected "
+        f"{full['ate_corr']:.4f} m; 512x160 closed {tier1['closed']}, ATE "
+        f"corrected {tier1['ate_corr']:.4f} m")
 
     # launches: each kernel's count from the System run of its own path;
     # the main path is the pipelined schedule

@@ -29,6 +29,7 @@ from pyorbslam_tpu_torch.place.keyframe_db import KeyFrameDatabase
 from pyorbslam_tpu_torch.place.vocabulary import Vocabulary
 from pyorbslam_tpu_torch.slam.frame import StereoFrame
 from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
+from pyorbslam_tpu_torch.slam.loop_closing import LoopCloser
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
 from pyorbslam_tpu_torch.slam.system import System
 
@@ -170,16 +171,35 @@ def ring_from_numpy(arrays: Any, device: torch.device) -> tuple:
     return tuple(tensor_from_numpy(a, device) for a in arrays)
 
 
+def loop_closer_from_numpy(src: Any, cfg: SlamConfig, m, voc: Vocabulary,
+                           kfdb: KeyFrameDatabase) -> LoopCloser:
+    """A JAX ``LoopCloser``'s state -> the port's, over the port's map and
+    keyframe database: consistency groups, last loop keyframe, the three
+    counters, the Sim3 failure cooldown and the pending global-BA budget."""
+    lc = LoopCloser(cfg, m, voc, kfdb, consistency_th=src.consistency_th)
+    lc.prev_groups = [({int(k) for k in g}, int(c)) for g, c in src.prev_groups]
+    lc.last_loop_kf = int(src.last_loop_kf)
+    lc.n_loops_closed = int(src.n_loops_closed)
+    lc.n_loops_rejected = int(src.n_loops_rejected)
+    lc.n_loops_fused = int(src.n_loops_fused)
+    lc._sim3_fail.extend(({int(k) for k in g}, int(k0))
+                         for g, k0 in src._sim3_fail)
+    lc._gba_remaining = int(getattr(src, "_gba_remaining", 0))
+    return lc
+
+
 def system_from_numpy(src: Any, cfg: SlamConfig, device: torch.device) -> System:
     """A JAX ``System`` between two frames -> the port's ``System`` on
     ``device`` in the same state: vocabulary, map (landmarks, keyframes,
-    spanning tree, culled-keyframe anchors; the native index is rebuilt
-    from the observation table, so observation counts and covisibility are
-    recounted), keyframe database, keyframe ring and the tracker's state
+    spanning tree, loop edges, culled-keyframe anchors; the native index is
+    rebuilt from the observation table, so observation counts and
+    covisibility are recounted), keyframe database, keyframe ring, the loop
+    closer's state (consistency groups, last loop keyframe, counters, Sim3
+    failure cooldown, pending global-BA budget) and the tracker's state
     (pose, velocity, last frame and its landmark bindings, trajectory and
-    relative-pose log, keyframe bookkeeping).  The source must have nothing
-    in flight (``flush_async()`` / ``shutdown()`` first); loop closing is
-    left off, as the port requires."""
+    relative-pose log, keyframe bookkeeping).  The port's ``System`` takes
+    the source's ``enable_loop_closing``.  The source must have nothing in
+    flight (``flush_async()`` / ``shutdown()`` first)."""
     if src._async_q or src._maint_queue or src._maint_pipe \
             or getattr(src, "_pending_window", None) is not None:
         raise ValueError("the source System has frames or mapping work in "
@@ -190,12 +210,14 @@ def system_from_numpy(src: Any, cfg: SlamConfig, device: torch.device) -> System
                  keyframe_capacity=src.keyframe_capacity,
                  ba_every_n_kf=src.ba_every_n_kf,
                  localization_only=src.localization_only,
-                 enable_loop_closing=False, vocabulary=voc)
+                 enable_loop_closing=src.enable_loop_closing, vocabulary=voc)
     m = out.map
     m.landmarks = landmarks_from_numpy(src.map.landmarks)
     m.keyframes = keyframes_from_numpy(src.map.keyframes)
     m.parent = dict(src.map.parent)
     m.children = {k: set(v) for k, v in src.map.children.items()}
+    m.loop_edges = {int(k): {int(j) for j in v}
+                    for k, v in src.map.loop_edges.items()}
     m.dead_anchor = {k: (int(p), np.array(T, np.float32))
                      for k, (p, T) in src.map.dead_anchor.items()}
     m.rebuild_core()
@@ -213,6 +235,9 @@ def system_from_numpy(src: Any, cfg: SlamConfig, device: torch.device) -> System
     if src.local_mapper is not None:
         out.local_mapper = LocalMapper(cfg, m, ring=out.kf_ring,
                                        mirror_fn=out._landmark_mirror)
+    if getattr(src, "loop_closer", None) is not None:
+        out.loop_closer = loop_closer_from_numpy(src.loop_closer, cfg, m,
+                                                 voc, out.kfdb)
 
     out.state = src.state
     out.Tcw = np.array(src.Tcw, np.float32)

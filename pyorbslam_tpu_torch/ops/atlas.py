@@ -28,6 +28,7 @@ from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops.extractor import DETECT_BORDER, FrameFeatures, _pad_axis0
+from pyorbslam_tpu_torch.utils.host_read import upload
 
 PAD = desc_ops.BORDER  # 19
 
@@ -121,12 +122,13 @@ def atlas_layout(
 @functools.lru_cache(maxsize=8)
 def _layout_tensors(layout_args: tuple, device: torch.device):
     """A layout's static arrays on ``device`` (interior mask, candidate
-    index and validity), uploaded once per layout and device."""
+    index and validity), uploaded once per layout and device through
+    pinned memory (no wait for the work queued before)."""
     layout = atlas_layout(*layout_args)
     return (
-        torch.as_tensor(layout.interior16, device=device),
-        torch.as_tensor(layout.cand_idx.astype(np.int64), device=device),
-        torch.as_tensor(layout.cand_valid, device=device),
+        upload(layout.interior16, device),
+        upload(layout.cand_idx.astype(np.int64), device),
+        upload(layout.cand_valid, device),
     )
 
 

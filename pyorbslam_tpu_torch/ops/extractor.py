@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +29,7 @@ from pyorbslam_tpu_torch.ops import fast as fast_ops
 from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
+from pyorbslam_tpu_torch.utils.host_read import device_constant
 
 DETECT_BORDER = 16  # EDGE_THRESHOLD - 3: min distance of a corner to the level edge
 
@@ -88,14 +90,17 @@ def _extract_pyramids(pyramids, orb: OrbConfig) -> list:
     scores = kernels.fast_score_maps(imgs)
     per_level = [level_keypoints(img, score, orb, i % n_levels)
                  for i, (img, score) in enumerate(zip(imgs, scores))]
+    # no bounds check: select_keypoints keeps every slot, padding
+    # included, inside its level (the check would read back a flag and
+    # wait for the whole frame queued before it)
     desc = kernels.brief_descriptors_levels(
         [p[4] for p in per_level], [p[0] for p in per_level],
-        [p[3] for p in per_level])
+        [p[3] for p in per_level], check_bounds=False)
 
     device = imgs[0].device
     cap = orb.max_keypoints
-    scales = torch.as_tensor(orb.scale_factors, dtype=torch.float32,
-                             device=device)
+    scales = device_constant(np.asarray(orb.scale_factors, np.float32),
+                             torch.float32, device)
     out, first = [], 0
     for b in range(len(pyramids)):
         mine = per_level[b * n_levels: (b + 1) * n_levels]

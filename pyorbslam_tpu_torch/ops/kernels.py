@@ -472,7 +472,7 @@ def brief_descriptors_levels_ref(
 
 def brief_descriptors_levels(
     padded_blurred: Sequence[torch.Tensor], xy: Sequence[torch.Tensor],
-    angle_deg: Sequence[torch.Tensor]
+    angle_deg: Sequence[torch.Tensor], check_bounds: bool = True,
 ) -> torch.Tensor:
     """Steered rBRIEF on up to 16 level images: ``padded_blurred[i]`` is
     (H_i + 38, W_i + 38) float32 (reflect pad of ``BORDER``), ``xy[i]``
@@ -480,7 +480,13 @@ def brief_descriptors_levels(
     (sum N_i, 8) int32 words in the order given.  One launch of the CUDA
     kernel for CUDA tensors, the twin :func:`brief_descriptors_levels_ref`
     for CPU tensors.  cos and sin are computed here in torch, exactly as
-    the twin computes them."""
+    the twin computes them.
+
+    The bounds check sends the level sizes to the device and reads one
+    flag back, which makes the host wait for everything queued before it.
+    A caller whose keypoints lie inside their levels by construction (the
+    extractor: ``select_keypoints`` keeps every slot 16 px inside) passes
+    ``check_bounds=False``."""
     dev = _check_image_list(padded_blurred, "brief_descriptors_levels")
     if not len(xy) == len(angle_deg) == len(padded_blurred):
         raise ValueError(
@@ -492,7 +498,8 @@ def brief_descriptors_levels(
                              f"are not on {dev}")
     counts = [k.shape[0] for k in xy]
     xy_all = torch.cat(list(xy))
-    _check_levels_bounds(padded_blurred, counts, xy_all)
+    if check_bounds:
+        _check_levels_bounds(padded_blurred, counts, xy_all)
     if dev.type == "cpu":
         return brief_descriptors_levels_ref(padded_blurred, xy, angle_deg)
     cos, sin = desc_ops.cos_sin(torch.cat(list(angle_deg)))

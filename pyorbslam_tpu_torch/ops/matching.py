@@ -15,7 +15,10 @@ Port of the per-frame parts of ``pyorbslam_tpu/ops/matching.py``:
   :func:`bow_match_rot` are the relocalization and reference-keyframe
   matchers built on it;
 * :func:`rotation_consistency_mask` is the 30-bin rotation histogram
-  top-3 filter (ORBMatcher.py:16-19), with upstream's 0.1x cutoff.
+  top-3 filter (ORBMatcher.py:16-19), with upstream's 0.1x cutoff;
+* :func:`sim3_mutual_match` is ORBMatcher.search_by_sim3
+  (ORBMatcher.py:713-848), the loop closer's mutual Sim3 projection
+  matcher.
 """
 
 from __future__ import annotations
@@ -272,3 +275,73 @@ def rotation_consistency_mask(
     keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool,
                            device=rot.device).scatter_(0, top3, keep_top3)
     return matched & keep_bin[bins]
+
+
+def sim3_mutual_match(
+    # KF1 (current) side: landmark geometry per feature slot
+    p1_pos: torch.Tensor,       # (N1, 3) world pos of slot's landmark
+    p1_desc_bits: torch.Tensor, p1_pop: torch.Tensor,
+    p1_has: torch.Tensor,       # (N1,) bool slot carries a live landmark
+    p1_dmin: torch.Tensor, p1_dmax: torch.Tensor,
+    already1: torch.Tensor,     # (N1,) bool already matched (skip)
+    f1_xy: torch.Tensor, f1_octave: torch.Tensor,
+    f1_desc_bits: torch.Tensor, f1_pop: torch.Tensor, f1_valid: torch.Tensor,
+    # KF2 (loop candidate) side
+    p2_pos: torch.Tensor, p2_desc_bits: torch.Tensor, p2_pop: torch.Tensor,
+    p2_has: torch.Tensor, p2_dmin: torch.Tensor, p2_dmax: torch.Tensor,
+    already2: torch.Tensor,
+    f2_xy: torch.Tensor, f2_octave: torch.Tensor,
+    f2_desc_bits: torch.Tensor, f2_pop: torch.Tensor, f2_valid: torch.Tensor,
+    # geometry
+    T1w: torch.Tensor, T2w: torch.Tensor,        # (4, 4) KF poses
+    R12: torch.Tensor, t12: torch.Tensor, s12: torch.Tensor,  # Sim3 cam2->cam1
+    cam4: torch.Tensor,         # [fx, fy, cx, cy]
+    bounds: torch.Tensor,       # [min_x, max_x, min_y, max_y]
+    scale_factors: torch.Tensor,
+    log_scale_factor: float, n_levels: int,
+    th: float = 7.5,
+) -> torch.Tensor:
+    """ORBMatcher.search_by_sim3 (ORBMatcher.py:713-848): grow loop
+    correspondences by projecting each keyframe's landmarks into the
+    other with the candidate Sim3, keeping only MUTUALLY consistent
+    pairs.  Radius th * scale[predicted level], level window
+    [pred-1, pred], TH_HIGH cut, distance-invariance band gate.
+
+    Returns (N1,) int32: KF2 feature index per KF1 feature slot (-1)."""
+
+    def direction(p_pos, p_bits, p_pop, p_has, p_dmin, p_dmax, already,
+                  Tsw, to_other, f_xy, f_oct, f_bits, f_pop, f_valid):
+        Pc = to_other(p_pos @ Tsw[:3, :3].T + Tsw[:3, 3])
+        z = Pc[:, 2]
+        invz = 1.0 / torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+        u = cam4[0] * Pc[:, 0] * invz + cam4[2]
+        v = cam4[1] * Pc[:, 1] * invz + cam4[3]
+        in_img = (z > 0) & (u >= bounds[0]) & (u <= bounds[1]) \
+            & (v >= bounds[2]) & (v <= bounds[3])
+        dist = torch.linalg.norm(Pc, dim=-1)
+        pred = predict_scale(dist, p_dmax / 1.2, log_scale_factor, n_levels)
+        radius = th * scale_factors[pred.long()]
+        active = p_has & ~already & in_img & (dist >= p_dmin) & (dist <= p_dmax)
+        idx, _, matched = match_by_projection(
+            u, v, torch.full_like(u, -1.0), p_bits, p_pop, radius,
+            pred - 1, pred, active,
+            f_xy, f_oct, torch.full_like(f_xy[:, 0], -1.0),
+            f_bits, f_pop, f_valid,
+            max_dist_th=TH_HIGH, ratio=None, stereo_gate=False,
+        )
+        return torch.where(matched, idx, torch.full_like(idx, -1))
+
+    # cam2 = (1/s) R12^T (cam1 - t12);  cam1 = s R12 cam2 + t12
+    m12 = direction(
+        p1_pos, p1_desc_bits, p1_pop, p1_has, p1_dmin, p1_dmax, already1,
+        T1w, lambda P: ((P - t12) @ R12) / s12,
+        f2_xy, f2_octave, f2_desc_bits, f2_pop, f2_valid,
+    )
+    m21 = direction(
+        p2_pos, p2_desc_bits, p2_pop, p2_has, p2_dmin, p2_dmax, already2,
+        T2w, lambda P: (P @ R12.T) * s12 + t12,
+        f1_xy, f1_octave, f1_desc_bits, f1_pop, f1_valid,
+    )
+    i1 = torch.arange(m12.shape[0], dtype=torch.int32, device=m12.device)
+    mutual = (m12 >= 0) & (m21[torch.clamp(m12, min=0).long()] == i1)
+    return torch.where(mutual, m12, torch.full_like(m12, -1))

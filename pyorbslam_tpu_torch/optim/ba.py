@@ -11,7 +11,7 @@ with dense device linear algebra:
     3x3 landmark blocks are inverted batched, the camera-point coupling
     blocks W are laid into a dense (6C x 3P) matrix, and the reduced
     camera system S = Hcc - W Hpp^-1 W^T is one matrix product, solved
-    with ``torch.linalg.solve``;
+    with ``torch.linalg.solve_ex`` (no status read-back);
   * the reference's two-phase schedule is preserved: 5 Huber iterations,
     chi2/depth gating that *excludes* bad edges and drops the robust
     kernel, 10 more iterations, then a final gate marking observations to
@@ -169,7 +169,10 @@ def _solve_reduced(Hcc_d, S_sub, rhs, cam_fixed):
     free6 = (~cam_fixed).to(Hcc_d.dtype).repeat_interleave(6)
     S_red = S_red * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
     rhs = rhs * free6
-    return -torch.linalg.solve(S_red, rhs).reshape(n_cam, 6)
+    # solve_ex: ``linalg.solve`` on a CUDA tensor reads its status flag
+    # back and waits for the device; the damped, identity-padded system
+    # is never singular, and the JAX package's solve checks nothing either
+    return -torch.linalg.solve_ex(S_red, rhs).result.reshape(n_cam, 6)
 
 
 def _accept(cam_Tcw, pnt_pos, cam_new, pnt_new, lam, cost_old, cost_new):
@@ -428,7 +431,9 @@ def _two_phase(prob, step, residuals, isig, act_mask, iters1, iters2):
     active = act_mask.to(prob.pnt_pos.dtype)
 
     def phase(cT, pP, iters, use_huber, act):
-        lam = torch.tensor(1e-4, dtype=pP.dtype, device=pP.device)
+        # a Python float: a 0-dim tensor made from the host here would be
+        # an upload that waits for the work queued before it
+        lam = 1e-4
         for _ in range(iters):
             cT, pP, lam = step(prob, cT, pP, act, lam, use_huber)
         return cT, pP

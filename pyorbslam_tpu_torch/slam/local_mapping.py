@@ -38,7 +38,7 @@ from pyorbslam_tpu_torch.ops.fast import topk_stable
 from pyorbslam_tpu_torch.ops.hamming import popcount, unpack_bits
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import _consts
-from pyorbslam_tpu_torch.utils.host_read import HostRead
+from pyorbslam_tpu_torch.utils.host_read import HostRead, device_constant, upload
 
 TRI_CAP = 512   # triangulation survivors read back per neighbor pair
 TRI_Q = 1024    # free-feature compaction width for the epipolar match
@@ -95,7 +95,7 @@ def triangulate_ring_packed(
     host->device payload per call is the free masks and poses."""
     xyA, ocA, deA, urA, dpA, _ = ring
     slot1 = int(slot1)
-    nb = torch.as_tensor(np.array(nb_slots), device=xyA.device).long()
+    nb = upload(np.asarray(nb_slots, np.int64), xyA.device)
     return tri_ops.triangulate_batch_packed(
         xyA[slot1], ocA[slot1], deA[slot1], urA[slot1], dpA[slot1], free1,
         xyA[nb], ocA[nb], deA[nb], urA[nb], dpA[nb], nb_free, nb_T,
@@ -164,7 +164,7 @@ def maintenance_ring_step(
     xyA, ocA, deA, urA, dpA, vaA = ring
     mirror = (m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive)
     slot1 = int(slot1)
-    nb = torch.as_tensor(np.array(nb_slots), device=xyA.device).long()
+    nb = upload(np.asarray(nb_slots, np.int64), xyA.device)
     # compact both sides to their FREE features first (typically half
     # the budget): the epipolar Hamming matrix and every mask shrink 4x
     Q = min(TRI_Q, int(free1.shape[0]))
@@ -226,12 +226,17 @@ class LocalMapper:
     mirror_fn: Optional[object] = None   # callable(force=True) -> mirror
 
     def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.map.device)
+        """A host array on the device through pinned memory: the upload
+        does not wait for the work queued before it (the frame's program
+        dispatched just before)."""
+        return upload(np.ascontiguousarray(a), self.map.device)
 
     def _tri_consts(self):
         cam = self.cfg.camera
         k = _consts(self.cfg, self.map.device)
-        level_sigma2 = self._dev(np.asarray(self.cfg.orb.level_sigma2, np.float32))
+        level_sigma2 = device_constant(
+            np.asarray(self.cfg.orb.level_sigma2, np.float32), torch.float32,
+            self.map.device)
         return k.cam, float(cam.baseline), k.scale_factors, level_sigma2
 
     # ---------------- fused per-keyframe maintenance ----------------

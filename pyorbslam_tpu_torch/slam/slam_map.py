@@ -23,9 +23,12 @@ Reference semantics preserved:
     support (LocalMapping.map_point_culling:125-150);
   * normal/depth refresh after BA (MapPoint.update_normal_and_depth).
 
-Only the dense BA engine is carried: ``global_ba`` and the ``cg`` /
-``dist`` engines raise ``NotImplementedError`` (ROADMAP.md queue 1,
-item 20).
+Global BA (:meth:`SlamMap.global_ba`, run by the loop closer) keeps the
+JAX package's engine ladder: the dense grid engine up to 96 live
+keyframes, the implicit-Schur CG engine (``optim/ba_cg.py``) above.  The
+multi-device ``dist`` rung is taken only where the JAX package takes it,
+with several devices of the map's kind visible, and raises
+``NotImplementedError`` there (ROADMAP.md queue 1, item 21).
 """
 
 from __future__ import annotations
@@ -42,9 +45,9 @@ import torch
 from pyorbslam_tpu_torch.config import SlamConfig
 from pyorbslam_tpu_torch.native.mapcore_ffi import MapCore
 from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
-from pyorbslam_tpu_torch.optim import ba
+from pyorbslam_tpu_torch.optim import ba, ba_cg
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
-from pyorbslam_tpu_torch.utils.host_read import HostRead
+from pyorbslam_tpu_torch.utils.host_read import HostRead, device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 COVIS_TH = 15
@@ -52,6 +55,11 @@ COVIS_TH = 15
 CAM_BUCKETS = (8, 16, 32, 64, 128, 256)
 PNT_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 OBS_BUCKETS = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
+# the CG engine's buckets: a whole map is never truncated to the dense caps
+CG_CAM_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
+CG_PNT_BUCKETS = (16384, 32768, 65536, 131072, 262144)
+CG_OBS_BUCKETS = (65536, 131072, 262144, 524288, 1048576)
+GBA_DENSE_MAX_KFS = 96
 
 
 def _pack_ba_result(cam_Tcw, pnt_pos, inlier):
@@ -249,11 +257,29 @@ class SlamMap:
     # ------------- global bundle adjustment -------------
 
     def global_ba(self, iters: Optional[int] = None) -> dict:
-        """Optimizer.bundle_adjustment over all keyframes and landmarks
-        (run after loop closure): not carried yet."""
-        raise NotImplementedError(
-            "SlamMap.global_ba is not ported yet (ROADMAP.md queue 1, "
-            "item 20: global BA and the cg / dist engines)")
+        """Optimizer.bundle_adjustment (Optimizer.py:21-121): all live
+        keyframes and observed landmarks, KF 0 fixed, ``gba_iters`` (10)
+        LM iterations of one robust phase, run after a loop closure.
+        ``iters`` overrides the count for the bounded slices the loop
+        closer spreads over the following keyframes (the reference's
+        abortable GBA thread, LoopClosing.py:342-436)."""
+        C_live = [k for k in range(self.keyframes.n) if self.keyframes.alive[k]]
+        pnt_ids = self.core.observed_landmarks(self.landmarks.n)
+        if len(C_live) < 2 or len(pnt_ids) < 50:
+            return dict(ran=False)
+        # the JAX package takes its multi-device engine where it sees more
+        # than one device (len(jax.devices()) > 1); a CPU is one device
+        if len(C_live) <= GBA_DENSE_MAX_KFS:
+            engine = "dense"
+        elif self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            engine = "dist"
+        else:
+            engine = "cg"
+        return self._run_ba(
+            cams=C_live, n_free=len(C_live), pnt_ids=pnt_ids,
+            iters1=(self.cfg.ba.gba_iters if iters is None else iters),
+            iters2=0, erase_outliers=False, engine=engine,
+        )
 
     # ------------- local bundle adjustment -------------
 
@@ -330,18 +356,25 @@ class SlamMap:
                 engine: str = "dense", split: bool = False,
                 max_move: Optional[float] = None) -> dict:
         """Assemble bucketed fixed-shape arrays (native observation
-        gather), dispatch the dense Schur BA, write back, optionally
-        erase outlier observations.  The buckets keep the device program
+        gather), dispatch the Schur BA (the dense grid engine, or
+        implicit-Schur CG at global scale), write back, optionally erase
+        outlier observations.  The buckets keep the device program
         few-shaped (padding rows are inert), which is what a CUDA graph
-        capture needs later."""
-        if engine != "dense":
+        capture needs later.  Every host array goes to the device
+        through pinned memory (``upload``), so a dispatch never waits for
+        the work queued before it."""
+        if engine == "dist":
             raise NotImplementedError(
-                f"BA engine {engine!r} is not ported yet (ROADMAP.md queue 1, "
-                "item 20: global BA and the cg / dist engines)")
+                "the multi-device BA engine 'dist' is not ported yet "
+                "(ROADMAP.md queue 1, item 21: parallel/)")
+        if engine not in ("dense", "cg"):
+            raise ValueError(f"unknown BA engine {engine!r}")
+        cg = engine == "cg"
         cams = np.asarray(cams, np.int32)
         pnt_ids = np.asarray(pnt_ids, np.int32)
-        C = _bucket(len(cams), CAM_BUCKETS)
-        P = _bucket(len(pnt_ids), PNT_BUCKETS)
+        C = _bucket(len(cams), CG_CAM_BUCKETS if cg else CAM_BUCKETS)
+        P = _bucket(len(pnt_ids), CG_PNT_BUCKETS if cg else PNT_BUCKETS)
+        obs_buckets = CG_OBS_BUCKETS if cg else OBS_BUCKETS
         cams = cams[:C]
         n_free = min(n_free, C)
         pnt_ids = pnt_ids[:P]
@@ -349,11 +382,11 @@ class SlamMap:
         ks = self.keyframes
         with self._t("ba.assemble"):
             oc, op, okf, oft = self.core.assemble_obs(
-                cams, pnt_ids, cap=OBS_BUCKETS[-1])
+                cams, pnt_ids, cap=obs_buckets[-1])
         n_obs = len(oc)
         if n_obs < 20 or len(pnt_ids) < 10:
             return dict(ran=False)
-        O = _bucket(n_obs, OBS_BUCKETS)
+        O = _bucket(n_obs, obs_buckets)
         n_obs = min(n_obs, O)
         oc, op, okf, oft = oc[:n_obs], op[:n_obs], okf[:n_obs], oft[:n_obs]
         inv_sigma2 = np.asarray(self.cfg.orb.inv_level_sigma2, np.float32)
@@ -378,6 +411,19 @@ class SlamMap:
 
         ouvr = np.stack([ks.kp_xy[okf, oft, 0], ks.kp_xy[okf, oft, 1],
                          ks.u_right[okf, oft]], axis=1).astype(np.float32)
+        c = self.cfg.camera
+        dev = self.device
+        cam5 = device_constant(np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf],
+                                          np.float32), torch.float32, dev)
+
+        def up(a):
+            return upload(np.ascontiguousarray(a), dev)
+
+        if cg:
+            return self._run_ba_cg(
+                cams, cam_fixed, n_free, pnt_ids, cam_Tcw, pnt_pos,
+                pnt_active, oc, op, okf, oft, ouvr, inv_sigma2, cam5, O,
+                n_obs, iters1, iters2, erase_outliers, max_move, up)
 
         # dense engine: the (P, K) observation grid, scatter-free Schur
         # assembly (optim/ba.py:BAGridProblem).  K is chosen adaptively
@@ -403,18 +449,13 @@ class SlamMap:
             ba.grid_pack_from_obs(oc, op, ouvr, ks.kp_octave[okf, oft], P, K=K)
         if n_drop:
             self.counters["ba.grid_dropped_obs"] += n_drop
-        c = self.cfg.camera
-        dev = self.device
-
-        def up(a):
-            return torch.as_tensor(a, device=dev)
 
         with self._t("ba.solve"):
             res = ba.bundle_adjust_grid_packed(
                 up(cam_Tcw), up(cam_fixed), up(pnt_pos), up(pnt_active),
-                up(g_cam), up(g_uvrq), up(g_oct), up(g_act),
-                up(np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf], np.float32)),
-                up(inv_sigma2), iters1=iters1, iters2=iters2)
+                up(g_cam), up(g_uvrq), up(g_oct), up(g_act), cam5,
+                device_constant(inv_sigma2, torch.float32, dev),
+                iters1=iters1, iters2=iters2)
             # the copy to the host starts here; a split caller reads it a
             # frame later without a stall
             handle = HostRead(_pack_ba_result(res.cam_Tcw, res.pnt_pos,
@@ -435,6 +476,40 @@ class SlamMap:
                         n_free=n_free, n_points=len(pnt_ids),
                         n_obs=n_obs)
         return self.local_ba_apply(pend)
+
+    def _run_ba_cg(self, cams, cam_fixed, n_free, pnt_ids, cam_Tcw, pnt_pos,
+                   pnt_active, oc, op, okf, oft, ouvr, inv_sigma2, cam5, O,
+                   n_obs, iters1, iters2, erase_outliers, max_move, up):
+        """The CG rung of :meth:`_run_ba`: flat observations padded to the
+        bucket ``O`` (padding rows carry the last point id and are
+        inactive), one solve, ONE packed read, write back."""
+        C, P = cam_Tcw.shape[0], pnt_pos.shape[0]
+        ocp = np.zeros(O, np.int32)
+        opp = np.full(O, P - 1, np.int32)
+        ouvrp = np.zeros((O, 3), np.float32)
+        oisig = np.zeros(O, np.float32)
+        oact = np.zeros(O, bool)
+        ocp[:n_obs] = oc
+        opp[:n_obs] = op
+        ouvrp[:n_obs] = ouvr
+        oisig[:n_obs] = inv_sigma2[self.keyframes.kp_octave[okf, oft]]
+        oact[:n_obs] = True
+        prob = ba.BAProblem(
+            cam_Tcw=up(cam_Tcw), cam_fixed=up(cam_fixed),
+            pnt_pos=up(pnt_pos), pnt_active=up(pnt_active),
+            obs_cam=up(ocp), obs_pnt=up(opp), obs_uvr=up(ouvrp),
+            obs_inv_sigma2=up(oisig), obs_active=up(oact), cam=cam5)
+        with self._t("ba.solve"):
+            res = ba_cg.bundle_adjust_cg(prob, iters1=iters1, iters2=iters2)
+            out = HostRead(_pack_ba_result(res.cam_Tcw, res.pnt_pos,
+                                           res.obs_inlier)).numpy()
+        new_Tcw = out[: 16 * C].view(np.float32).reshape(C, 4, 4)
+        new_pos = out[16 * C: 16 * C + 3 * P].view(np.float32).reshape(P, 3)
+        inlier = np.unpackbits(out[16 * C + 3 * P:].view(np.uint8),
+                               bitorder="little")[:O].astype(bool)
+        return self._ba_writeback(
+            cams, cam_fixed, n_free, pnt_ids, new_Tcw, new_pos, inlier,
+            op, okf, n_obs, erase_outliers, max_move=max_move)
 
     def local_ba_apply(self, pend: dict) -> dict:
         """Consume a split dense-BA dispatch: ONE host read, write back

@@ -1,4 +1,5 @@
-"""System facade: the full SLAM pipeline (tracking + local mapping).
+"""System facade: the full SLAM pipeline (tracking, local mapping, loop
+closing).
 
 Port of ``pyorbslam_tpu/slam/system.py``'s per-frame schedules.  API
 parity with the reference System (System.py:20-168): ``track_stereo``,
@@ -22,13 +23,17 @@ A frame that tracks weakly goes through the full per-frame state machine
 (``_track_reference_keyframe``), a wide-radius rescue and relocalization
 (``_relocalize``: BoW candidates, EPnP RANSAC, projection rescue).
 
+Loop closing (``slam/loop_closing.py``) is on by default, as in the JAX
+package: every keyframe's mapping pass ends with the loop stage
+(detection, Sim3, correction with its essential graph) and, after a
+closure, one bounded global-BA slice per keyframe.
+
 ``System(cfg, device)`` runs every device step on ``device``; nothing
 picks a device for the caller.
 
 Not carried yet, each raising ``NotImplementedError`` with its
 ``ROADMAP.md`` queue-1 item: the windowed schedule
-(``track_stereo_window``, ``window_feed``, ``window_flush``: item 20) and
-loop closing (``enable_loop_closing=True``, item 19).
+(``track_stereo_window``, ``window_feed``, ``window_flush``: item 20).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from pyorbslam_tpu_torch.slam.frame import (
 )
 from pyorbslam_tpu_torch.slam.kf_ring import DeviceKFRing
 from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
+from pyorbslam_tpu_torch.slam.loop_closing import LoopCloser
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import (
     fused_track_chain_step,
@@ -149,16 +155,12 @@ class System:
     # KF-every-3-frames load is below one run per keyframe
     ba_every_n_kf: int = 2
     localization_only: bool = False
-    # ablation switch of the JAX package: odometry + mapping without
-    # place recognition / loop correction.  True raises until loop
-    # closing is ported.
+    # ablation switch for drift-repair evaluation: odometry + mapping
+    # without place recognition / loop correction
     enable_loop_closing: bool = True
     vocabulary: Optional[Vocabulary] = None  # the shipped asset if absent
 
     def __post_init__(self):
-        if self.enable_loop_closing:
-            raise _not_ported(
-                "Loop closing (System(enable_loop_closing=True))", "19")
         use_f32_matmuls()
         self.device = torch.device(self.device)
         self.reset()
@@ -172,6 +174,7 @@ class System:
         self.kfdb = (
             KeyFrameDatabase(self.vocabulary) if self.vocabulary else None
         )
+        self.loop_closer = None
         self.local_mapper = None
         self.kf_ring = DeviceKFRing()
         self.last_reloc_frame = -10**9
@@ -833,6 +836,9 @@ class System:
         self.kf_ring.insert(kf, frame)
         bow = self.vocabulary.bow_vector(word, wweight, frame_np["valid"])
         self.kfdb.add(kf, bow)
+        if self.loop_closer is None and self.enable_loop_closing:
+            self.loop_closer = LoopCloser(
+                self.cfg, self.map, self.vocabulary, self.kfdb)
         if self.local_mapper is None:
             self.local_mapper = LocalMapper(
                 self.cfg, self.map,
@@ -861,13 +867,12 @@ class System:
         return kf
 
     def _kf_maintenance(self, kf: int, bow, deferred: bool):
-        """LocalMapping work for one keyframe (LocalMapping.run order:
-        triangulate new points over covisible neighbors, fuse duplicates,
-        local BA, keyframe culling).  The loop-closing stage that follows
-        in the JAX package is not carried yet (``enable_loop_closing``
-        is refused at construction).  ``deferred`` = running after later
-        frames were already tracked: pose refinements fold into the live
-        pose as a rigid delta instead of being adopted directly."""
+        """LocalMapping + LoopClosing work for one keyframe
+        (LocalMapping.run order: triangulate new points over covisible
+        neighbors, fuse duplicates, local BA, keyframe culling, then the
+        loop-closing stage).  ``deferred`` = running after later frames
+        were already tracked: pose refinements fold into the live pose as
+        a rigid delta instead of being adopted directly."""
         if self.local_mapper is not None:
             # triangulation + both fuse directions as ONE device program
             # + ONE packed read (LocalMapper.maintain)
@@ -891,7 +896,35 @@ class System:
         if self.local_mapper is not None and kf % 4 == 0:
             self.local_mapper.cull_keyframes(
                 kf, on_removed=lambda k: self.kfdb.erase(k))
+        self._loop_stage(kf, bow, adopt=not deferred, sync=True)
         self._mirror_stale = True
+
+    def _loop_stage(self, kf: int, bow, adopt: bool, sync: bool):
+        """The loop closer on one keyframe, then (if it closed nothing) one
+        pending global-BA slice.  A slice's or a closure's correction of
+        ``kf`` folds into the live pose as a rigid delta; with ``adopt`` a
+        closure's corrected keyframe pose is taken as it is.  A closure
+        also clears the motion model (the old velocity lives in the
+        pre-correction frame).  ``sync=False`` in the pipelined queue: the
+        stage reads its own results, and a timer that waited would also
+        wait for the frame dispatched just before."""
+        if self.loop_closer is None:
+            return
+        pre = self.map.keyframes.Tcw[kf].copy()
+        with self._t("kf.loop", sync=sync):
+            closed = self.loop_closer.on_keyframe(kf, bow)
+        self.events.append(("loop", kf, closed))
+        ran_slice = False
+        if not closed:
+            with self._t("kf.gba_slice", sync=sync):
+                ran_slice = self.loop_closer.run_gba_slice()
+        if closed and adopt:
+            self.Tcw = self.map.keyframes.Tcw[kf].copy()
+        elif closed or ran_slice:
+            delta = self.map.keyframes.Tcw[kf] @ np.linalg.inv(pre)
+            self.Tcw = (delta @ self.Tcw).astype(np.float32)
+        if closed:
+            self.velocity = np.eye(4, dtype=np.float32)
 
     def _run_maintenance_queue(self, blocking: bool = True):
         """Advance the deferred per-keyframe mapping work.
@@ -929,7 +962,9 @@ class System:
                 it["pend"] = lmapper.maintain_dispatch(kf)
             if it["pend"] is None:
                 # ring rotated a participant out: separate-step fallback
-                with self._t("kf.maintain"):
+                # (its own reads wait for its results; the timer must not
+                # also wait for the frame dispatched just before)
+                with self._t("kf.maintain", sync=False):
                     info = dict(new=lmapper.create_new_points(kf),
                                 fused=lmapper.fuse_neighbors(kf),
                                 fallback=True)
@@ -979,11 +1014,10 @@ class System:
             it["stage"] = "post_ba"
             return self._advance_maint_item(it)
         if it["stage"] == "post_ba":
-            # (the JAX package's loop-closing stage would follow here;
-            # enable_loop_closing is refused at construction)
             if lmapper is not None and kf % 4 == 0:
                 lmapper.cull_keyframes(
                     kf, on_removed=lambda k: self.kfdb.erase(k))
+            self._loop_stage(kf, it["bow"], adopt=False, sync=False)
             self._mirror_stale = True
             it["stage"] = "done"
 

@@ -39,7 +39,7 @@ from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import pose_opt
 from pyorbslam_tpu_torch.slam.frame import StereoFrame, build_stereo_frame, unproject
 from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
-from pyorbslam_tpu_torch.utils.host_read import device_constant
+from pyorbslam_tpu_torch.utils.host_read import device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 
@@ -467,7 +467,9 @@ class Tracker:
         self.stats: list = []
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """A host array on the device through pinned memory: the upload
+        does not wait for the work queued before it."""
+        return upload(a, self.device)
 
     def _local_point_ids(self, exclude: np.ndarray) -> np.ndarray:
         """Local map = landmarks of recent KF groups minus already-assigned

@@ -14,9 +14,9 @@ vocabulary asset, or trains a scene vocabulary from the first frame.
 
 ``--device`` names the device every step runs on (default ``cuda``).
 Nothing falls back: with ``cuda`` and no CUDA device the command fails.
-Loop closing is not ported yet (ROADMAP.md queue 1, item 19), so the
-system runs with ``enable_loop_closing=False``; ``--window`` reaches the
-windowed schedule, which raises until item 20 lands.
+The system runs with loop closing on, as the repository's CLI does;
+``--window`` reaches the windowed schedule, which raises until
+ROADMAP.md queue 1, item 20 lands.
 """
 
 import argparse
@@ -62,8 +62,7 @@ def main(argv=None):
         print(f"loading vocabulary {args.pathToVocabulary} ...")
         vocabulary = Vocabulary.load_text(args.pathToVocabulary)
 
-    system = System(cfg, device, vocabulary=vocabulary,
-                    enable_loop_closing=False)
+    system = System(cfg, device, vocabulary=vocabulary)
 
     left_paths, _, times = load_image_paths(args.pathToSequence)
     n = len(left_paths)

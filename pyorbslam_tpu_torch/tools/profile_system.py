@@ -3,7 +3,7 @@
     python3 -m pyorbslam_tpu_torch.tools.profile_system [--frames 16] [--warm 8]
                                                         [--pipelined]
 
-Runs the port's ``System`` (default configuration, loop closing off) over
+Runs the port's ``System`` (default configuration, loop closing on) over
 the first frames of the 1241x376 / 2000-feature synthetic sequence that
 ``chip_smoke.py`` uses, twice:
 
@@ -64,8 +64,7 @@ def make_run(n_frames: int):
 
 
 def new_system(cfg, device):
-    return system.System(cfg, device, keyframe_capacity=256,
-                         enable_loop_closing=False)
+    return system.System(cfg, device, keyframe_capacity=256)
 
 
 @contextlib.contextmanager

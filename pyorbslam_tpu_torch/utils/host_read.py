@@ -49,7 +49,7 @@ class HostRead:
 def _constant(data: bytes, np_dtype: str, shape: tuple, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     a = np.frombuffer(data, dtype=np_dtype).reshape(shape)
-    return torch.as_tensor(a.copy(), dtype=dtype, device=device)
+    return upload(torch.as_tensor(a.copy(), dtype=dtype), device)
 
 
 def device_constant(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

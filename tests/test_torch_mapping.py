@@ -531,12 +531,33 @@ class TestSlamMap:
         assert done["ran"] and done["n_obs"] == r["n_obs"]
 
     @pytest.mark.parametrize("call", ["global_ba", "cg", "dist"])
-    def test_other_engines_raise(self, port_map, call):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            if call == "global_ba":
-                port_map.global_ba()
-            else:
-                port_map._run_ba([0, 1], 2, np.arange(20), 5, 10, True, engine=call)
+    def test_other_engines_raise(self, jax_run, port_map, call):
+        """The engines beside local BA: ``global_ba`` (its dense rung at
+        this map size) and ``_run_ba(engine="cg")`` against the JAX
+        package on the same map, keyframe poses within ``BA_POS_TOL``,
+        erased observations within 2; only the multi-device ``dist``
+        engine still raises, naming its ROADMAP item."""
+        if call == "dist":
+            with pytest.raises(NotImplementedError, match="item 21"):
+                port_map._run_ba([0, 1], 2, np.arange(20), 5, 10, True,
+                                 engine="dist")
+            return
+        jm = jax_map_copy(jax_run[0])
+        if call == "global_ba":
+            want, got = jm.global_ba(), port_map.global_ba()
+        else:
+            cams = list(range(jm.keyframes.n))
+            pnt = jm.core.observed_landmarks(jm.landmarks.n)
+            want = jm._run_ba(cams, len(cams), pnt, 3, 3, True, engine="cg")
+            got = port_map._run_ba(cams, len(cams), pnt, 3, 3, True, engine="cg")
+        assert want["ran"] and got["ran"]
+        for key in ("n_cams", "n_free", "n_points", "n_obs"):
+            assert got[key] == want[key]
+        assert abs(got["n_erased"] - want["n_erased"]) <= 2
+        n = jm.keyframes.n
+        assert np.abs(port_map.keyframes.Tcw[:n] - jm.keyframes.Tcw[:n]).max() < BA_POS_TOL
+        assert port_map.reprojection_chi2() == pytest.approx(
+            jm.reprojection_chi2(), rel=1e-2)
 
 
 class TestLocalMapper:

@@ -276,8 +276,17 @@ class TestModes:
             call(s, seq30.left[0])
 
     def test_loop_closing_default_is_refused(self, seq30):
+        """Loop closing is on by default in both packages, and the port's
+        default ``System(cfg, device)`` constructs and creates its loop
+        closer at the first keyframe (nothing is refused any more)."""
         _, tc = make_cfgs(seq30)
         assert tsystem.System.__dataclass_fields__["enable_loop_closing"].default \
             is jsystem.System.__dataclass_fields__["enable_loop_closing"].default
-        with pytest.raises(NotImplementedError, match="item 19"):
-            tsystem.System(tc, CPU)
+        s = tsystem.System(tc, CPU)
+        assert s.enable_loop_closing and s.loop_closer is None
+        s.track_stereo(seq30.left[0], seq30.right[0], seq30.timestamps[0])
+        assert s.map.keyframes.n == 1
+        assert s.loop_closer is not None and s.loop_closer.kfdb is s.kfdb
+        assert s.loop_closer.map is s.map
+        s.reset()
+        assert s.loop_closer is None
