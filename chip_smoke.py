@@ -97,8 +97,30 @@
    ``cg`` engine against the dense engine on all live keyframes from the
    same state (camera centres within 2 cm).
 
-The two loop sequences render in two worker processes while phases 2-7
-run on the card.
+10. The windowed schedule, ``W = 4``.  (a) ``System.track_stereo_window``
+    over phase 5's 34 frames (frame 0 initializes, frames 1-3 are scanned,
+    the last window holds 2 frames); (b) ``System.window_feed`` /
+    ``window_flush`` on a 34-frame 1241x376 straight sequence at 0.5 m a
+    frame (seed 3, the schedule's operating envelope), beside a
+    ``track_stereo`` run on it (phase 5's requirements).  Both: every pose
+    returned once and finite, at least 3 keyframes, nothing in flight
+    after ``shutdown``, fast_score and brief_canvas launched once per
+    scanned frame plus once per frame that ``track_stereo`` took (the
+    bootstrap, an aborted window's tail), and no synchronizing CUDA call
+    inside ``_dispatch_window``; every committed rotation orthonormal
+    (|R R^T - I| under 1e-5) and the ATE under the JAX package's gate
+    (3 x phase 5's or 0.05 m; 7 x the per-frame run's or 0.25 m;
+    tests/test_system.py::TestWindowedTracking).  Prints the ``window.*`` timers, frames/s and the ``retrack:*`` /
+    ``abort:*`` / ``chain:reseed`` counts.
+11. Checkpoint: phase 5's map through ``utils/checkpoint.py``
+    (``save_map``, ``load_map`` on the card): keyframe and landmark counts,
+    poses, positions and observations equal, the covisibility the recount
+    of the observations; then the loaded map swapped into phase 5's
+    ``System``, which tracks its last frame four more times (the camera
+    stops): state ``OK`` or ``MARGINAL``, more than 30 inliers.
+
+The two loop sequences and phase 10b's sequence render in worker
+processes while phases 2-7 run on the card.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -117,7 +139,9 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 import warnings
 
 import numpy as np
@@ -136,6 +160,7 @@ from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
 from pyorbslam_tpu_torch.slam.system import System
 from pyorbslam_tpu_torch.slam.tracking import Tracker, fused_track_chain_step
 from pyorbslam_tpu_torch.tools.timing import time_graph_ms, time_ms, time_stream_ms
+from pyorbslam_tpu_torch.utils import checkpoint
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -146,6 +171,10 @@ N_FRAMES_PER_LEVEL = 12   # length of the use_atlas=False System runs
 LOOP_SEQ = dict(trajectory="loop", laps=1.15, seed=11)
 N_LOOP_FRAMES = 96
 TIER1_LOOP = dict(n_frames=92, width=512, height=160, n_features=1000)
+# phase 10: windows of W frames; 10b's sequence is slower (the envelope of
+# window_feed: about 2 m a window at KITTI-like depths)
+WINDOW = 4
+FEED_SEQ = dict(trajectory="straight", speed=0.5, seed=3)
 WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
@@ -202,15 +231,18 @@ def make_sequence(n_frames: int = N_FRAMES):
     return seq, config_of(seq, N_FEATURES)
 
 
-def start_loop_renders(pool):
-    """Render the two loop sequences in worker processes while the card
-    runs phases 2-7: (full width, tier-1) futures."""
+def start_renders(pool):
+    """Render the two loop sequences and phase 10b's sequence in worker
+    processes while the card runs phases 2-7: (full-width loop, tier-1
+    loop, window_feed sequence) futures."""
     full = pool.submit(generate_sequence, n_frames=N_LOOP_FRAMES, width=WIDTH,
                        height=HEIGHT, **LOOP_SEQ)
     small = pool.submit(generate_sequence, n_frames=TIER1_LOOP["n_frames"],
                         width=TIER1_LOOP["width"], height=TIER1_LOOP["height"],
                         **LOOP_SEQ)
-    return full, small
+    feed = pool.submit(generate_sequence, n_frames=N_FRAMES, width=WIDTH,
+                       height=HEIGHT, **FEED_SEQ)
+    return full, small, feed
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -563,6 +595,10 @@ ASYNC_STAGES = ("perframe.track", "async.dispatch", "async.read", "async.commit"
                 "kf.maintain_apply", "kf.ba_dispatch", "kf.ba_apply", "kf.loop",
                 "kf.gba_slice")
 BA_STAGES = ("ba.assemble", "ba.solve")
+WINDOW_STAGES = ("window.dispatch", "window.read", "window.commit_total",
+                 "window.retrack", "perframe.track", "kf.insert_total",
+                 "kf.maintain", "kf.local_ba", "kf.maintain_dispatch",
+                 "kf.maintain_apply", "kf.ba_dispatch", "kf.ba_apply")
 
 
 def drift_of(poses_cw: list, seq, n: int) -> tuple:
@@ -812,7 +848,7 @@ def watch_dispatch_syncs(system) -> dict:
     return collected
 
 
-def report_dispatch_syncs(which: str, syncs: dict) -> None:
+def report_dispatch_syncs(which: str, syncs: dict, main: str = "chain") -> None:
     """Nothing may read back, or wait for the stream, inside a dispatch:
     the frame's program has to stay in flight behind the host.  Fails with
     the source lines PyTorch reports (a read-back, or an upload from
@@ -826,7 +862,7 @@ def report_dispatch_syncs(which: str, syncs: dict) -> None:
                f"dispatches" if counts else "no dispatch")
             + (f", from {where}" if where else ""))
         bad += [f"{stage}: {w}" for w in where]
-    require(bool(syncs["chain"]), f"{which}: no frame was dispatched")
+    require(bool(syncs[main]), f"{which}: no frame was dispatched")
     require(not bad, f"{which}: synchronizing calls inside a dispatch at {bad}")
 
 
@@ -1003,6 +1039,131 @@ def run_kidnap(seq, system, n_frames: int) -> None:
     require(err < 0.5, f"kidnap: position error {err:.3f} m")
 
 
+def run_window(seq, cfg, device, n_frames: int, fed: bool, ate_per_frame: float,
+               factor: float, floor: float) -> dict:
+    """Phase 10: ``track_stereo_window`` (or, with ``fed``, ``window_feed``
+    and ``window_flush``) over ``n_frames`` in windows of ``WINDOW``, then
+    ``shutdown``.  Every dispatch is watched for synchronizing CUDA calls;
+    the frames each dispatch scans and the calls of ``track_stereo`` are
+    counted, since each launches the atlas kernels once a frame.  The ATE
+    must meet the JAX package's gate (tests/test_system.py::
+    TestWindowedTracking: under ``factor`` x the per-frame ATE or
+    ``floor``), and every committed rotation must be orthonormal."""
+    which = "System.window_feed" if fed else "System.track_stereo_window"
+    system = System(cfg, device, keyframe_capacity=256)
+    syncs = []
+    scanned, per_frame = [], []
+    dispatch = _sync_watched(system._dispatch_window, syncs)
+
+    def counted_dispatch(lefts, rights, timestamps, carry=None):
+        scanned.append(len(timestamps))
+        return dispatch(lefts, rights, timestamps, carry)
+
+    real_track = system.track_stereo
+
+    def counted_track(left, right, timestamp):
+        per_frame.append(timestamp)
+        return real_track(left, right, timestamp)
+
+    system._dispatch_window, system.track_stereo = counted_dispatch, counted_track
+    kernels.reset_launch_counts()
+    returned = []
+    t0 = time.perf_counter()
+    for w0 in range(0, n_frames, WINDOW):
+        w = slice(w0, min(w0 + WINDOW, n_frames))
+        feed = system.window_feed if fed else system.track_stereo_window
+        returned.extend(feed(seq.left[w], seq.right[w], seq.timestamps[w]))
+    if fed:
+        returned.extend(system.window_flush())
+    system.shutdown()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    poses = system.corrected_trajectory()
+    ate, drift, length = drift_of(list(poses), seq, n_frames)
+    events = Counter(e for e in system.events if isinstance(e, str))
+    fps = n_frames / elapsed
+    log(f"{which} (W={WINDOW}): {n_frames} frames in {elapsed:.2f} s, "
+        f"{fps:.3f} frames/s with the first; ATE {ate:.4f} m over {length:.2f} m "
+        f"(drift {100 * drift:.3f}%) against {ate_per_frame:.4f} m per frame, "
+        f"keyframes {system.map.keyframes.n}, {sum(scanned)} frames scanned in "
+        f"{len(scanned)} dispatches, {len(per_frame)} through track_stereo, "
+        f"events {dict(sorted(events.items()))}, launches {counts}")
+    for label in WINDOW_STAGES:
+        k = system.time_counts[label]
+        if k:
+            log(f"  {label}: {1e3 * system.times[label] / k:.2f} ms each over {k} calls")
+    report_dispatch_syncs(which, dict(window=syncs), main="window")
+    require(len(returned) == n_frames, f"{which}: {len(returned)} poses returned")
+    require(len(system.trajectory) == n_frames, f"{which}: a frame was not tracked")
+    require(bool(np.isfinite(poses).all()) and bool(np.isfinite(np.stack(returned)).all()),
+            f"{which}: non-finite pose")
+    require(system._pending_window is None and not system._maint_pipe
+            and not system._maint_queue, f"{which}: work left in flight")
+    for name in ATLAS_KERNELS:
+        want = sum(scanned) + len(per_frame)
+        require(counts[name] == want, f"{which}: {name} launched {counts[name]} "
+                                      f"times, {want} frames built")
+    require(system.map.keyframes.n >= 3,
+            f"{which}: {system.map.keyframes.n} keyframes")
+    R = np.stack(system.trajectory).astype(np.float64)[:, :3, :3]
+    rot_err = float(np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
+    gate = max(factor * ate_per_frame, floor)
+    log(f"  ATE {ate:.4f} m against the JAX package's gate max({factor} x "
+        f"{ate_per_frame:.4f}, {floor}) = {gate:.4f} m; committed rotations "
+        f"|R R^T - I| <= {rot_err:.2e}")
+    require(rot_err < 1e-5, f"{which}: a committed rotation is {rot_err:.2e} "
+                            "from orthonormal")
+    require(ate < gate, f"{which}: ATE {ate:.4f} m against the gate {gate:.4f} m")
+    return dict(ate=ate, fps=fps)
+
+
+def run_checkpoint(system, seq) -> None:
+    """Phase 11: the map of phase 5's System saved and loaded on its
+    device, compared, swapped in, and tracked on."""
+    m = system.map
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_map(m, path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        m2 = checkpoint.load_map(system.cfg, system.device, path)
+        t_load = time.perf_counter() - t0
+    nk, nl = m.keyframes.n, m.landmarks.n
+    require((m2.keyframes.n, m2.landmarks.n) == (nk, nl),
+            f"checkpoint: {m2.keyframes.n} keyframes, {m2.landmarks.n} landmarks "
+            f"loaded of {nk}, {nl}")
+    for what, a, b in (("poses", m2.keyframes.Tcw[:nk], m.keyframes.Tcw[:nk]),
+                       ("positions", m2.landmarks.pos[:nl], m.landmarks.pos[:nl]),
+                       ("observations", m2.keyframes.obs_lm[:nk], m.keyframes.obs_lm[:nk])):
+        require(np.array_equal(a, b), f"checkpoint: {what} differ")
+    obs = m2.keyframes.obs_lm[:nk]
+    ca, cb, cw = m2.core.covis_edges()
+    for a, b, w in zip(ca.tolist(), cb.tolist(), cw.tolist()):
+        na, nb = Counter(obs[a][obs[a] >= 0].tolist()), Counter(obs[b][obs[b] >= 0].tolist())
+        require(w == sum(na[k] * nb[k] for k in na.keys() & nb.keys()),
+                f"checkpoint: covisibility {a}-{b} is not the recount")
+    system.map = m2
+    if system.local_mapper is not None:
+        system.local_mapper.map = m2
+    if system.loop_closer is not None:
+        system.loop_closer.map = m2
+    last = seq.left.shape[0] - 1
+    states = []
+    for k in range(4):
+        system.track_stereo(seq.left[last], seq.right[last], seq.timestamps[last] + 0.1 * (k + 1))
+        states.append(system.state)
+    system.shutdown()
+    inliers = system.stats[-1]["inliers"]
+    log(f"checkpoint: {nk} keyframes, {nl} landmarks, {len(ca)} covisibility edges, "
+        f"{size} bytes; save {t_save:.3f} s, load on {system.device} {t_load:.3f} s; "
+        f"resumed on the loaded map (the last frame four times): states {states}, "
+        f"inliers {[st['inliers'] for st in system.stats[-4:]]}")
+    require(all(st in ("OK", "MARGINAL") for st in states), f"checkpoint: states {states}")
+    require(inliers > 30, f"checkpoint: {inliers} inliers on the last frame")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1032,7 +1193,7 @@ def main() -> None:
     pool = None
     if not kernels_only:
         pool = concurrent.futures.ProcessPoolExecutor(
-            max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+            max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     try:
         run_phases(device, smi, kernels_only, pool)
     finally:
@@ -1041,7 +1202,7 @@ def main() -> None:
 
 
 def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
-    loop_renders = start_loop_renders(pool) if pool is not None else None
+    renders = start_renders(pool) if pool is not None else None
     t0 = time.perf_counter()
     seq, cfg = make_sequence(2 if kernels_only else N_FRAMES)
     cfg_levels = dataclasses.replace(
@@ -1081,13 +1242,28 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
         f"{per_level['fps']:.3f}, pipelined {per_level_async['fps']:.3f}")
 
     t0 = time.perf_counter()
-    full_seq, small_seq = (f.result() for f in loop_renders)
-    log(f"loop sequences rendered ({time.perf_counter() - t0:.1f} s waited for)")
+    full_seq, small_seq, feed_seq = (f.result() for f in renders)
+    log(f"loop and window_feed sequences rendered ({time.perf_counter() - t0:.1f} s "
+        f"waited for)")
     full = run_loop_full_width(full_seq, device)
     tier1 = run_loop_tier1(small_seq, device)
     log(f"loops: full width closed {full['closed']}, ATE corrected "
         f"{full['ate_corr']:.4f} m; 512x160 closed {tier1['closed']}, ATE "
         f"corrected {tier1['ate_corr']:.4f} m")
+
+    window = run_window(seq, cfg, device, N_FRAMES, fed=False,
+                        ate_per_frame=ate_sync, factor=3.0, floor=0.05)
+    feed_cfg = config_of(feed_seq, N_FEATURES)
+    feed_per_frame = run_system(feed_seq, feed_cfg, device, N_FRAMES,
+                                {"fast_score": 1, "brief_canvas": 1},
+                                unused=("brief_level",))
+    fed = run_window(feed_seq, feed_cfg, device, N_FRAMES, fed=True,
+                     ate_per_frame=feed_per_frame["ate"], factor=7.0, floor=0.25)
+    log(f"windowed schedule: track_stereo_window {window['fps']:.3f} frames/s, ATE "
+        f"{window['ate']:.4f} m (per frame {ate_sync:.4f}); window_feed "
+        f"{fed['fps']:.3f} frames/s, ATE {fed['ate']:.4f} m (per frame "
+        f"{feed_per_frame['ate']:.4f})")
+    run_checkpoint(main_path["system"], seq)
 
     # launches: each kernel's count from the System run of its own path;
     # the main path is the pipelined schedule

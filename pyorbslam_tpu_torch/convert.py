@@ -209,6 +209,7 @@ def system_from_numpy(src: Any, cfg: SlamConfig, device: torch.device) -> System
     out = System(cfg, device, landmark_capacity=src.landmark_capacity,
                  keyframe_capacity=src.keyframe_capacity,
                  ba_every_n_kf=src.ba_every_n_kf,
+                 window_commit_min_inliers=src.window_commit_min_inliers,
                  localization_only=src.localization_only,
                  enable_loop_closing=src.enable_loop_closing, vocabulary=voc)
     m = out.map

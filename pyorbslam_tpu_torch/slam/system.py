@@ -5,7 +5,7 @@ Port of ``pyorbslam_tpu/slam/system.py``'s per-frame schedules.  API
 parity with the reference System (System.py:20-168): ``track_stereo``,
 ``save_trajectory_kitti``, ``reset``, ``shutdown``,
 ``activate/deactivate_localization_mode``.  The reference's three threads
-become one of two schedules on one host thread:
+become one of three schedules on one host thread:
 
 * ``track_stereo``, synchronous and interleaved: each keyframe insertion
   immediately runs the local-mapping step (covisibility update, point
@@ -16,7 +16,16 @@ become one of two schedules on one host thread:
   tracking program is dispatched and its packed result row starts copying
   to the host at once; the row is read and committed at the NEXT call, and
   a committed keyframe's mapping work advances one device stage per
-  tracked frame behind the dispatch (``_run_maintenance_queue``).
+  tracked frame behind the dispatch (``_run_maintenance_queue``);
+* ``track_stereo_window`` and ``window_feed`` / ``window_flush``,
+  windowed: W frames are tracked by one device loop
+  (``tracking.fused_track_window``) against a local map frozen for the
+  window, and one read brings the W rows to the host, which then commits
+  them frame by frame; a frame that needs a keyframe, or whose anchoring
+  weakened, is first re-tracked on the device against the current map
+  from the features the scan built (``_retrack_window_frame``).
+  ``window_feed`` dispatches window N + 1, its device carry rebased onto
+  the host's corrected pose, before it runs window N's mapping work.
 
 A frame that tracks weakly goes through the full per-frame state machine
 (``_track``): motion retry, BoW matching against the reference keyframe
@@ -30,10 +39,6 @@ closure, one bounded global-BA slice per keyframe.
 
 ``System(cfg, device)`` runs every device step on ``device``; nothing
 picks a device for the caller.
-
-Not carried yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` queue-1 item: the windowed schedule
-(``track_stereo_window``, ``window_feed``, ``window_flush``: item 20).
 """
 
 from __future__ import annotations
@@ -67,8 +72,11 @@ from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
 from pyorbslam_tpu_torch.slam.loop_closing import LoopCloser
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import (
+    fused_retrack_snapshot_step,
+    fused_retrack_step,
     fused_track_chain_step,
     fused_track_step,
+    fused_track_window,
     kf_snapshot,
     local_track_step,
     motion_track_step,
@@ -76,6 +84,15 @@ from pyorbslam_tpu_torch.slam.tracking import (
 )
 from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
+
+
+def _rigid(T: np.ndarray) -> np.ndarray:
+    """The nearest rigid transform to ``T``: its rotation block projected
+    onto SO(3) (SVD in float64), its translation kept."""
+    U, _, Vt = np.linalg.svd(np.asarray(T[:3, :3], np.float64))
+    out = np.array(T, np.float32)
+    out[:3, :3] = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    return out
 
 
 def _cap_bucket(n: int, max_cap: int) -> int:
@@ -97,11 +114,6 @@ def _mirror_scatter(mirror, ids: torch.Tensor, rows) -> None:
     repeated rows carry equal values, so the result is defined."""
     for m, r in zip(mirror, rows):
         m.index_copy_(0, ids, r)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})")
 
 
 def need_new_keyframe(
@@ -154,6 +166,11 @@ class System:
     # (mbAbortBA, LocalMapping.py:86-106), so its effective cadence under
     # KF-every-3-frames load is below one run per keyframe
     ba_every_n_kf: int = 2
+    # windowed schedule: a scanned frame is committed as it is only while
+    # its local-map anchoring stays at least this strong; a weaker one is
+    # re-tracked against the current map first.  Guards against the
+    # map-feedback drift of committing weakly anchored poses
+    window_commit_min_inliers: int = 90
     localization_only: bool = False
     # ablation switch for drift-repair evaluation: odometry + mapping
     # without place recognition / loop correction
@@ -198,6 +215,15 @@ class System:
         self._frame_cache = None     # (frame, host snapshot) of the last pull
         self._vocab_cache = None     # (frame, (word, weight, node)) prefetch
         self._snap_prefetch = None   # (frame, kf_snapshot HostRead)
+        # ---- windowed schedule state ----
+        # while a window commits, the mapper counts as busy (the
+        # reference's async LocalMapping while its queue drains,
+        # LocalMapping.py:86-106): keyframe insertion then needs c1a / c1c
+        # and is capped by the queue arbitration
+        self._mapper_queue = None    # None = idle (per-frame schedules)
+        self._pending_window = None  # in-flight window of window_feed
+        self._scan_correction = None  # (raw last scan pose, host pose)
+        self._chain_healthy = True   # raw device chain tracks host chain
         # ---- pipelined per-frame (async) schedule state ----
         self._async_q: list = []     # in-flight dispatch records (<= 1)
         self._defer_maintenance = False  # commit in progress: queue KF work
@@ -404,15 +430,400 @@ class System:
         else:
             self.frame_refs.append((-1, self.Tcw.copy()))
 
+    # ---------------- windowed schedule ----------------
+    #
+    # window_feed, per call:
+    #   1. COMMIT the in-flight window: read its rows, re-track weak or
+    #      keyframe-to-be frames against the current map, insert keyframes
+    #      (features + stereo landmarks + BoW registration);
+    #   2. DISPATCH the next window's scan, its device carry REBASED onto
+    #      the host's corrected pose, so the scan runs on a map as fresh as
+    #      its own first frame (the reference's one-keyframe mapping lag);
+    #   3. run the committed keyframes' MAPPING work (triangulation, fuse,
+    #      local BA, loop closing) behind the scan (System.py:58-64); pose
+    #      refinements reach the in-flight window through its base
+    #      correction at the next commit.
+
     def track_stereo_window(self, lefts, rights, timestamps) -> np.ndarray:
-        raise _not_ported("System.track_stereo_window (windowed schedule)",
-                          "20")
+        """Track a window of W frames with one device dispatch
+        (``tracking.fused_track_window``): the device carries features and
+        pose from frame to frame; keyframe decisions and map updates run on
+        the host after the window from the per-frame rows.  The local map
+        is frozen for the window, the lag the reference's asynchronous
+        LocalMapping thread produces.  Until initialized the frames go
+        through the per-frame machine.  Returns the W per-frame Tcw."""
+        if self.state != "OK" or self.map.keyframes.n == 0:
+            return self._window_bootstrap(lefts, rights, timestamps)
+        return self._commit_window(
+            self._dispatch_window(lefts, rights, timestamps))
+
+    def _window_bootstrap(self, lefts, rights, timestamps) -> np.ndarray:
+        """Per-frame tracking until the system is initialized (or has
+        recovered), then the rest of the window as one scan when it holds
+        three frames or more."""
+        L = len(timestamps)
+        poses, i = [], 0
+        while i < L and (self.state != "OK" or self.map.keyframes.n == 0):
+            poses.append(self.track_stereo(lefts[i], rights[i], timestamps[i]))
+            i += 1
+        if L - i >= 3:
+            poses.extend(self._commit_window(self._dispatch_window(
+                lefts[i:], rights[i:], timestamps[i:])))
+        else:
+            for j in range(i, L):
+                poses.append(self.track_stereo(lefts[j], rights[j], timestamps[j]))
+        return np.stack(poses)
 
     def window_feed(self, lefts, rights, timestamps) -> np.ndarray:
-        raise _not_ported("System.window_feed (windowed schedule)", "20")
+        """Feed one window; returns the poses that became final with this
+        call (usually the previous window's W; none on the first call; the
+        pending window's and this one's when a bootstrap flushes).
+
+        Operating envelope: the in-flight window scans against a map
+        frozen up to 2W-1 frames ago, so the motion over a window must stay
+        well inside the projection-search radius at scene depth (about
+        2-3 m a window at KITTI-like depths).  Faster motion makes scanned
+        rows anchor on landmarks their own drifted keyframes created; use
+        ``track_stereo_async`` there."""
+        if self.state != "OK" or self.map.keyframes.n == 0:
+            done = self.window_flush()
+            boot = self._window_bootstrap(lefts, rights, timestamps)
+            return np.concatenate([done, boot]) if len(done) else boot
+
+        old = self._pending_window
+        self._pending_window = None
+        out = np.zeros((0, 4, 4), np.float32)
+        carry = None
+        if old is not None:
+            self._defer_maintenance = True
+            try:
+                out = self._commit_window(old)
+            finally:
+                self._defer_maintenance = False
+            if self.state != "OK":
+                # lost mid-window: the per-frame rescue machine took the
+                # tail; drain the mapping work and track this window per
+                # frame too
+                self._run_maintenance_queue()
+                return np.concatenate([out, np.stack([
+                    self.track_stereo(lefts[i], rights[i], timestamps[i])
+                    for i in range(len(timestamps))])])
+            if self._chain_healthy:
+                # rebase the device carry onto the corrected pose: the raw
+                # chain's relative motion is kept, its anchor moves to the
+                # host's pose (the velocity is invariant under this
+                # right-multiplication)
+                raw_last, corrected = self._scan_correction
+                M = self._dev(
+                    (np.linalg.inv(raw_last) @ corrected).astype(np.float32))
+                frame_c, _, Tcw_c, Tlw_c = old["carry"]
+                q_lm = self._dev(self.map.landmarks.resolve(self.last_assign))
+                carry = (frame_c, q_lm, Tcw_c @ M, Tlw_c @ M)
+            else:
+                self.events.append("chain:reseed")
+        new = self._dispatch_window(lefts, rights, timestamps, carry=carry)
+        base_pre = self.Tcw.copy()
+        self._pending_window = new
+        # the committed keyframes' mapping work runs behind the scan
+        self._run_maintenance_queue()
+        # its pose refinements reach the in-flight window as a base
+        # correction (the window's raw chain is anchored at base_pre)
+        new["base"] = (base_pre, self.Tcw.copy())
+        return out
 
     def window_flush(self) -> np.ndarray:
-        raise _not_ported("System.window_flush (windowed schedule)", "20")
+        """Commit the in-flight window, if any; returns its poses."""
+        pending = self._pending_window
+        self._pending_window = None
+        if pending is None:
+            return np.zeros((0, 4, 4), np.float32)
+        if self.state != "OK":
+            return np.stack([
+                self.track_stereo(l, r, t) for l, r, t in zip(
+                    pending["lefts"], pending["rights"], pending["timestamps"])])
+        return self._commit_window(pending)
+
+    def _dispatch_window(self, lefts, rights, timestamps, carry=None):
+        """Upload one window of stereo pairs and dispatch the scan.
+        ``carry`` (the device tuple of the previous scan) chains windows
+        without waiting for the host.  Host-timed: the scan stays in
+        flight."""
+        with self._t("window.dispatch", sync=False):
+            return self._dispatch_window_inner(lefts, rights, timestamps, carry)
+
+    def _dispatch_window_inner(self, lefts, rights, timestamps, carry=None):
+        W = len(timestamps)
+        lm = self.map.landmarks
+        local_ids = self._spatial_point_ids(self.Tcw)
+        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
+        p_ids = np.full(cap, -1, np.int32)
+        p_ids[: len(local_ids)] = local_ids
+
+        # one upload for the whole window, in the caller's dtype (uint8
+        # where given: a quarter of float32's bytes)
+        images = self._dev(np.stack([
+            np.stack([np.asarray(lefts[i]), np.asarray(rights[i])])
+            for i in range(W)]))
+        if carry is None:
+            frame0 = self.last_frame
+            q_lm0 = self._dev(lm.resolve(self.last_assign))
+            Tlw0 = self._dev(self.Tcw)
+            Tllw0 = self._dev(
+                (np.linalg.inv(self.velocity) @ self.Tcw).astype(np.float32))
+        else:
+            frame0, q_lm0, Tlw0, Tllw0 = carry
+        packed, frames, carry_out = fused_track_window(
+            images, *self._landmark_mirror(), frame0, q_lm0,
+            self._dev(p_ids), Tlw0, Tllw0, self.cfg,
+        )
+        return dict(packed=HostRead(packed),   # the read overlaps the scan
+                    frames=frames, carry=carry_out, frame0=frame0,
+                    lefts=lefts, rights=rights, timestamps=timestamps,
+                    p_ids=p_ids, n_local=len(local_ids),
+                    n_feat=int(q_lm0.shape[0]), base=None)
+
+    def _commit_window(self, pending) -> np.ndarray:
+        with self._t("window.commit_total"):
+            return self._commit_window_inner(pending)
+
+    def _commit_window_inner(self, pending) -> np.ndarray:
+        """Commit one scanned window frame by frame.  A healthy row commits
+        its scan pose.  A frame that needs a keyframe, or whose anchoring
+        fell below ``window_commit_min_inliers``, is re-tracked on the
+        device against the current map from the features the scan built.
+        Only a frame still weak after that (true tracking loss) hands the
+        rest of the window to the per-frame machine and its
+        relocalization ladder."""
+        timestamps = pending["timestamps"]
+        lefts, rights = pending["lefts"], pending["rights"]
+        p_ids = pending["p_ids"]
+        local_n = pending["n_local"]
+        lm = self.map.landmarks
+        W = len(timestamps)
+        with self._t("window.read", sync=False):
+            out = pending["packed"].numpy()     # ONE device->host transfer
+        N, P = pending["n_feat"], len(p_ids)
+        frames = pending["frames"]
+
+        base_raw, base_corr = pending["base"] or (None, None)
+        raw_last = out[W - 1, 5:21].copy().view(np.float32).reshape(4, 4)
+        trk = self.cfg.tracking
+        poses = []
+        aborted = None
+        self._mapper_queue = 0   # window commit = mapper busy
+        for i in range(W):
+            row = out[i]
+            raw = row[5:21].copy().view(np.float32).reshape(4, 4)
+            frame_i = frames[i]
+            frame_prev = pending["frame0"] if i == 0 else frames[i - 1]
+            retracked = False
+            scan_weak = (int(row[0]) < 20 or int(row[1]) < 20
+                         or not np.isfinite(raw).all())
+
+            def adopt_retrack(re):
+                nonlocal base_raw, base_corr
+                (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
+                 p_visible, tracked_close, non_tracked_close) = re
+                # the re-tracked pose leaves the raw scan chain: fold the
+                # delta into the base correction so later rows follow.  A
+                # non-finite raw (a diverged scan pose) never becomes the
+                # base: later rows then rebase off the last finite one
+                if np.isfinite(raw).all():
+                    base_raw = raw.copy()
+                    base_corr = Tcw_i.copy()
+                return (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
+                        p_visible, tracked_close, non_tracked_close,
+                        int((p_ids_i >= 0).sum()))
+
+            if scan_weak:
+                # motion tracking collapsed mid-scan (often a stale map in
+                # the pipelined schedule): re-anchor on the device against
+                # the current map; only a failed re-track falls back to the
+                # per-frame rescue
+                self.events.append("retrack:scan_weak")
+                re = self._retrack_window_frame(frame_i, frame_prev)
+                if re is None:
+                    aborted = i
+                    self.events.append("abort:scan_weak")
+                    break
+                (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
+                 p_visible, tracked_close, non_tracked_close,
+                 n_local_i) = adopt_retrack(re)
+                retracked = True
+            else:
+                n_matches_i = int(row[0])
+                n_inliers = int(row[2])
+                assign = lm.resolve(row[21: 21 + N])
+                assign = np.where(
+                    (assign >= 0) & lm.alive[np.maximum(assign, 0)],
+                    assign, -1)
+                p_visible = unpack_bool_np(row[21 + N: 21 + N + P // 32], P)
+                if base_raw is None:
+                    Tcw_i = raw
+                else:
+                    # a singular base degrades to the per-frame rescue
+                    # instead of aborting the whole commit
+                    try:
+                        Tcw_i = raw @ np.linalg.inv(base_raw) @ base_corr
+                    except np.linalg.LinAlgError:
+                        aborted = i
+                        self.events.append("abort:singular_base")
+                        break
+                Tcw_i = np.ascontiguousarray(Tcw_i, dtype=np.float32)
+                tracked_close = int(row[3])
+                non_tracked_close = int(row[4])
+                n_local_i = local_n
+                p_vis_ids = p_ids
+
+            # does this frame need a keyframe, or did its anchoring weaken
+            # below the commit bar?  The mapper is the reference's async
+            # LocalMapping: idle once its per-keyframe latency has elapsed
+            ks = self.map.keyframes
+            needs_kf = need_new_keyframe(
+                n_inliers=int((assign >= 0).sum()),
+                n_ref_matches=self._ref_kf_tracked_points(),
+                n_kfs=int(ks.alive[: ks.n].sum()),
+                frame_id=self.frame_id + 1,
+                last_kf_frame=self.last_kf_frame,
+                last_reloc_frame=self.last_reloc_frame,
+                tracked_close=tracked_close,
+                non_tracked_close=non_tracked_close,
+                min_frames=trk.min_frames, max_frames=trk.max_frames,
+                mapper_idle=(self.frame_id + 1 >= self.last_kf_frame
+                             + trk.mapper_latency_frames),
+                queue_len=self._mapper_queue,
+            )
+            if not retracked and (
+                    needs_kf or n_inliers < self.window_commit_min_inliers):
+                # a keyframe-to-be is re-anchored against the current map
+                # before insertion (its landmarks seed what follows); the
+                # same dispatch brings its insertion snapshot and BoW
+                self.events.append(
+                    "retrack:needs_kf" if needs_kf else "retrack:weak_anchor")
+                re = self._retrack_window_frame(
+                    frame_i, frame_prev, want_snapshot=needs_kf)
+                if re is None:
+                    # weak even against the current map: the per-frame
+                    # machine's full rescue ladder takes this stretch
+                    aborted = i
+                    self.events.append("abort:retrack_failed")
+                    break
+                (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
+                 p_visible, tracked_close, non_tracked_close,
+                 n_local_i) = adopt_retrack(re)
+
+            self.frame_id += 1
+            vis_ids = p_vis_ids[p_visible[: len(p_vis_ids)]]
+            vis_ids = vis_ids[vis_ids >= 0]
+            lm.visible[vis_ids] += 1
+            found_ids = np.unique(assign[assign >= 0])
+            lm.found[found_ids] += 1
+            lm.visible[found_ids] += 1
+
+            self.state = "OK" if n_inliers >= 20 else "MARGINAL"
+            # a committed pose is rigid.  A scanned row composed with the
+            # base correction is not quite, and the device treats every pose
+            # it is given as rigid (``se3.inverse`` transposes): the next
+            # window's velocity seed and the VO points then carry the
+            # defect, and it grows window by window until the scan loses
+            # track (ROADMAP queue 3, F4)
+            self.Tcw = _rigid(Tcw_i)
+            pre_kf_Tcw = self.Tcw.copy()
+            self._finish_track(
+                frame_i, assign, n_matches_i, n_inliers,
+                tracked_close, non_tracked_close, n_local_i, timestamps[i],
+            )
+            if not np.allclose(self.Tcw, pre_kf_Tcw, atol=1e-7):
+                # local BA moved the pose: later rows follow the move
+                base_raw = raw.copy()
+                base_corr = self.Tcw.copy()
+            self.trajectory.append(self.Tcw.copy())
+            self._append_frame_ref()
+            poses.append(self.Tcw.copy())
+        if aborted is not None:
+            # true weakness: the per-frame machine (BoW fallback, wide
+            # rescue, relocalization) takes the rest of the window
+            for i in range(aborted, W):
+                poses.append(
+                    self.track_stereo(lefts[i], rights[i], timestamps[i]))
+        self._mapper_queue = None   # mapper idle again
+        # after an abort the per-frame machine took the tail, so the device
+        # chain reseeds from the host's state; a non-finite raw chain end
+        # (pose optimization diverged on garbage matches) is never
+        # inverted for a rebase
+        det = float(np.linalg.det(raw_last)) \
+            if np.isfinite(raw_last).all() else 0.0
+        self._chain_healthy = aborted is None and 0.5 < abs(det) < 2.0
+        # the raw device pose of the window's last frame against the
+        # host's corrected one: the next dispatch rebases its carry by this
+        self._scan_correction = (raw_last, self.Tcw.copy())
+        return np.stack(poses)
+
+    def _retrack_window_frame(self, frame_i, frame_prev,
+                              want_snapshot: bool = False):
+        """The full tracking body (motion model + local map + pose
+        optimization) for one scanned frame against the current map, from
+        the features the scan built: the re-track before an in-window
+        keyframe insertion.  With ``want_snapshot`` the same dispatch also
+        returns the insertion snapshot and BoW vectors (one read, not two).
+        Returns (n_matches, n_inliers, Tcw, assign, p_ids, p_visible,
+        tracked_close, non_tracked_close), or None when weak.  Both
+        attempts read back at once, as the synchronous schedule does."""
+        with self._t("window.retrack"):
+            return self._retrack_window_frame_inner(
+                frame_i, frame_prev, want_snapshot)
+
+    def _retrack_window_frame_inner(self, frame_i, frame_prev,
+                                    want_snapshot: bool):
+        lm = self.map.landmarks
+        Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
+        q_lm = lm.resolve(self.last_assign)
+        local_ids = self._spatial_point_ids(Tcw_pred)
+        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
+        p_ids = np.full(cap, -1, np.int32)
+        p_ids[: len(local_ids)] = local_ids
+        voc = self.vocabulary
+        want_snapshot = want_snapshot and voc is not None
+        args = (frame_i, *self._landmark_mirror(), self._dev(q_lm), frame_prev,
+                self._dev(p_ids), self._dev(Tcw_pred), self._dev(self.Tcw),
+                self.cfg)
+
+        def attempt(th_base):
+            if want_snapshot:
+                packed = fused_retrack_snapshot_step(
+                    *args, voc._device_arrays(self.device), voc.k, voc.L,
+                    voc.feature_levels_up, th_base=th_base)
+            else:
+                packed = fused_retrack_step(*args, th_base=th_base)
+            return packed.cpu().numpy()
+
+        def weak(packed):
+            return int(packed[0]) < 20 or int(packed[1]) < 20 \
+                or int(packed[2]) < 20
+
+        packed = attempt(7.0)
+        if weak(packed):
+            # the wide-radius rescue (the per-frame ladder's 28 px tier,
+            # Tracking.py's 2*th retry) before giving up on the frame
+            packed = attempt(28.0)
+        if weak(packed):
+            return None
+        N = q_lm.shape[0]
+        if want_snapshot:
+            buf = packed[21 + N + len(p_ids):]
+            self._frame_cache = (frame_i, unpack_frame_np(buf[: 16 * N], N))
+            self._vocab_cache = (frame_i, (
+                buf[16 * N: 17 * N],
+                buf[17 * N: 18 * N].view(np.float32),
+                buf[18 * N: 19 * N],
+            ))
+            self._snap_prefetch = None
+        Tcw = packed[5:21].copy().view(np.float32).reshape(4, 4)
+        assign = packed[21: 21 + N].copy()
+        p_visible = packed[21 + N: 21 + N + len(p_ids)].astype(bool)
+        return (int(packed[0]), int(packed[2]),
+                np.ascontiguousarray(Tcw, np.float32), assign, p_ids,
+                p_visible, int(packed[3]), int(packed[4]))
 
     def corrected_trajectory(self) -> np.ndarray:
         """Per-frame Tcw with all keyframe corrections applied.  Frames
@@ -449,10 +860,12 @@ class System:
     def shutdown(self):
         """Drain all in-flight work so every fed frame lands in the
         trajectory (System.py:149-167 joins its threads): the pipelined
-        schedule's uncommitted frame and the staged keyframe-maintenance
-        queue; on a CUDA device the queued kernels are waited for.
-        Idempotent."""
+        schedule's uncommitted frame, a pending window and the staged
+        keyframe-maintenance queue; on a CUDA device the queued kernels
+        are waited for.  Idempotent."""
         self.flush_async()
+        self.window_flush()
+        self._run_maintenance_queue()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -749,7 +1162,7 @@ class System:
                     self.frame_id
                     >= self.last_kf_frame + trk.mapper_latency_frames
                 ),
-                queue_len=0,
+                queue_len=self._mapper_queue or 0,
             ))
             or self.state == "MARGINAL"
             or self.state == "WEAK"
@@ -847,6 +1260,8 @@ class System:
         self.lm_created_kf[new_ids] = kf
         self.recent_lms.append(np.unique(assign[assign >= 0]))
         self.last_kf_frame = self.frame_id
+        if self._mapper_queue is not None:
+            self._mapper_queue += 1
 
         # map-point culling over landmarks created in the last 3 KFs
         if len(self.recent_lms) > 3:

@@ -7,10 +7,13 @@ The device side is plain functions on tensors: :func:`motion_track_step`
 frame's landmarks with the constant-velocity prediction, match by
 projection at th=7 px, or 2*th when fewer than 20 match, rotation
 histogram, 4x10 LM pose optimization, strip outliers),
-:func:`local_track_step` (Tracking.track_local_map, Tracking.py:358-468)
-and the fused per-frame programs :func:`fused_track_step` and
+:func:`local_track_step` (Tracking.track_local_map, Tracking.py:358-468),
+the fused per-frame programs :func:`fused_track_step` and
 :func:`fused_track_chain_step`, which gather landmark blocks from a
-device-resident mirror by index.  The ``n_matches < 20`` style decisions
+device-resident mirror by index, and the windowed schedule's programs:
+:func:`fused_track_window` (W frames chained on the device) and the
+re-track of an already-built frame (:func:`fused_retrack_step`,
+:func:`fused_retrack_snapshot_step`).  The ``n_matches < 20`` style decisions
 are ``torch.where`` on the device, so a step reads nothing back to the
 host until its caller does.
 
@@ -423,6 +426,68 @@ def fused_track_chain_step(
     return row, frame
 
 
+def fused_track_window(
+    images: torch.Tensor,       # (W, 2, H, Wd) stereo pairs (u8 or f32)
+    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,   # landmark mirror
+    last_frame: StereoFrame,    # previous frame's features (device)
+    q_lm0: torch.Tensor,        # (N,) landmark id per last-frame feature
+    p_ids: torch.Tensor,        # (P,) local-map ids, fixed for the window
+    Tlw0: torch.Tensor,         # (4, 4) last frame pose
+    Tllw0: torch.Tensor,        # (4, 4) pose before that (velocity seed)
+    cfg: SlamConfig,
+):
+    """Track a window of W frames with no host involvement: a loop over
+    the frames carries (previous features, landmark assignment, pose pair)
+    on the device, each step the chain step's frame build and tracking
+    core with the constant-velocity prediction formed on the device.
+
+    The local map (mirror + ``p_ids``) is frozen for the window, as the
+    reference's asynchronous LocalMapping leaves tracking on a lagging
+    map; the host makes the keyframe decisions after the window from the
+    rows.  Each row has :func:`fused_track_chain_step`'s layout
+    [stats 5 | Tcw 16 | assign N | p_visible P/32].
+
+    Returns (stacked rows (W, 21 + N + P/32), the W built frames, the
+    final carry (frame, assign, Tcw, Tlw)); the carry stays on the device
+    so the next window can be dispatched before the host reads this one.
+    """
+    use_f32_matmuls()
+    carry = (last_frame, q_lm0, Tlw0, Tllw0)
+    rows, frames = [], []
+    for lr in images:
+        frame_prev, q_lm, Tlw, Tllw = carry
+        frame = build_stereo_frame(lr[0], lr[1], cfg)
+        vel = Tlw @ se3.inverse(Tllw)
+        packed, Tcw, assign = _fused_track_core(
+            frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+            q_lm, frame_prev, p_ids, vel @ Tlw, Tlw, cfg,
+        )
+        n_core = 21 + assign.shape[0]
+        rows.append(torch.cat([packed[:n_core],
+                               _bitpack_bool(packed[n_core:] != 0)]))
+        frames.append(frame)
+        carry = (frame, assign, Tcw, Tlw)
+    return torch.stack(rows), frames, carry
+
+
+def fused_retrack_step(
+    frame: StereoFrame,
+    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+    q_lm, frame_prev: StereoFrame, p_ids, Tcw_pred, Tlw,
+    cfg: SlamConfig, th_base: float = 7.0,
+) -> torch.Tensor:
+    """The tracking core (motion model + local map + pose optimization)
+    on an already-built frame against the current landmark mirror: the
+    re-track of a scanned frame before keyframe insertion, without a
+    second ORB extraction.  Returns the unpacked row
+    [stats 5 | Tcw 16 | assign N | p_visible P]."""
+    packed, _, _ = _fused_track_core(
+        frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+        q_lm, frame_prev, p_ids, Tcw_pred, Tlw, cfg, th_base,
+    )
+    return packed
+
+
 def kf_snapshot(
     frame: StereoFrame, voc_arrays,
     voc_k: int, voc_L: int, voc_levels_up: int,
@@ -439,6 +504,26 @@ def kf_snapshot(
         pack_frame(frame),
         _transform_packed(frame.desc, *voc_arrays, voc_k, voc_L, voc_levels_up),
     ])
+
+
+def fused_retrack_snapshot_step(
+    frame: StereoFrame,
+    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+    q_lm, frame_prev: StereoFrame, p_ids, Tcw_pred, Tlw,
+    cfg: SlamConfig, voc_arrays,
+    voc_k: int, voc_L: int, voc_levels_up: int,
+    th_base: float = 7.0,
+) -> torch.Tensor:
+    """:func:`fused_retrack_step` and :func:`kf_snapshot` in one tensor,
+    read once: the re-track of a likely keyframe also brings its insertion
+    snapshot and BoW vectors to the host.  Layout:
+    [retrack 21 + N + P | snapshot 19N]."""
+    packed = fused_retrack_step(
+        frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+        q_lm, frame_prev, p_ids, Tcw_pred, Tlw, cfg, th_base,
+    )
+    return torch.cat([
+        packed, kf_snapshot(frame, voc_arrays, voc_k, voc_L, voc_levels_up)])
 
 
 @dataclasses.dataclass

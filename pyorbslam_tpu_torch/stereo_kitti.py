@@ -6,7 +6,7 @@ Usage:
     python3 -m pyorbslam_tpu_torch.stereo_kitti --pathToSequence <seq_dir> \
         --pathToVocabulary <ORBvoc.txt or "auto"> \
         --pathToSettings <KITTIxx.yaml> [--output CameraTrajectory.txt] \
-        [--async] [--device cuda]
+        [--async | --window W] [--device cuda]
 
 The sequence dir must contain image_2/, image_3/, times.txt (KITTI
 odometry layout).  Vocabulary "auto" (or a missing file) uses the shipped
@@ -14,9 +14,10 @@ vocabulary asset, or trains a scene vocabulary from the first frame.
 
 ``--device`` names the device every step runs on (default ``cuda``).
 Nothing falls back: with ``cuda`` and no CUDA device the command fails.
-The system runs with loop closing on, as the repository's CLI does;
-``--window`` reaches the windowed schedule, which raises until
-ROADMAP.md queue 1, item 20 lands.
+The system runs with loop closing on, as the repository's CLI does.
+``--window W`` tracks W frames a dispatch through
+``System.track_stereo_window``; a tail shorter than a window is tracked
+frame by frame.
 """
 
 import argparse

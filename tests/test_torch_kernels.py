@@ -351,7 +351,7 @@ def test_imports_without_jax():
         "        'native.mapcore_ffi', 'optim.epnp', 'io.kitti', 'stereo_kitti',\n"
         "        'utils.host_read', 'geometry.sim3', 'optim.horn', 'optim.sim3_opt',\n"
         "        'optim.pose_graph', 'optim.ba_cg', 'slam.loop_closing',\n"
-        "        'tools.dispatch_timing']\n"
+        "        'tools.dispatch_timing', 'utils.checkpoint']\n"
         "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"

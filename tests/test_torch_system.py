@@ -258,22 +258,40 @@ class TestModes:
         assert s.state == "NOT_INITIALIZED" and s.map.keyframes.n == 0
         assert s.corrected_trajectory().shape == (0, 4, 4)
 
-    NOT_PORTED = {
-        "track_stereo_window": ("20", lambda s, im: s.track_stereo_window([im], [im], [0.0])),
-        "window_feed": ("20", lambda s, im: s.window_feed([im], [im], [0.0])),
-        "window_flush": ("20", lambda s, im: s.window_flush()),
+    WINDOWED = {
+        # the windowed entry points:
+        # (frames fed, poses returned, frames scanned in one dispatch)
+        "track_stereo_window": (4, 4, 3),
+        "window_feed": (4, 4, 3),
+        "window_flush": (0, 0, 0),
     }
 
-    @pytest.mark.parametrize("name", sorted(NOT_PORTED))
+    @pytest.mark.parametrize("name", sorted(WINDOWED))
     def test_not_yet_ported_entry_points_raise(self, seq30, name):
-        """What is not carried raises and names its ROADMAP item; nothing
-        returns an empty result in its place."""
+        """Each windowed entry point runs from ``NOT_INITIALIZED``:
+        ``track_stereo_window`` and the first ``window_feed`` initialize on
+        their first frame and scan the other three in one dispatch, returning
+        all four poses; ``window_flush`` with nothing pending returns none.
+        (The name is the stub's this test replaced, kept so that the test
+        keeps its identity.)"""
         _, tc = make_cfgs(seq30)
-        s = tsystem.System(tc, CPU, landmark_capacity=1024, keyframe_capacity=4,
+        s = tsystem.System(tc, CPU, landmark_capacity=1 << 14, keyframe_capacity=16,
                            enable_loop_closing=False)
-        item, call = self.NOT_PORTED[name]
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call(s, seq30.left[0])
+        n_fed, n_out, n_scanned = self.WINDOWED[name]
+        w = slice(0, n_fed)
+        if name == "window_flush":
+            poses = s.window_flush()
+        else:
+            poses = getattr(s, name)(seq30.left[w], seq30.right[w], seq30.timestamps[w])
+        assert poses.shape == (n_out, 4, 4) and poses.dtype == np.float32
+        assert np.isfinite(poses).all()
+        assert len(s.trajectory) == n_out and s._pending_window is None
+        assert s.time_counts["window.dispatch"] == (1 if n_scanned else 0)
+        if n_out:
+            assert s.state == "OK" and s.map.keyframes.n >= 1
+            np.testing.assert_array_equal(poses, np.stack(s.trajectory))
+            gt = np.linalg.inv(seq30.poses_wc[:n_out])
+            assert np.abs(poses[:, :3, 3] - gt[:, :3, 3]).max() < 0.1
 
     def test_loop_closing_default_is_refused(self, seq30):
         """Loop closing is on by default in both packages, and the port's
