@@ -118,9 +118,35 @@
     of the observations; then the loaded map swapped into phase 5's
     ``System``, which tracks its last frame four more times (the camera
     stops): state ``OK`` or ``MARGINAL``, more than 30 inliers.
+12. The sharded engines (``parallel/``) on the one card.  Phase 5's map
+    tiled as tests/test_dist_gba_scale.py tiles its own (rigid copies on a
+    ring, >= 512 cameras and >= 200k observations, poses noised by 3 cm)
+    through ``distributed_bundle_adjust_cg`` on 4 shards of ``cuda:0`` and
+    on an NCCL group of world size 1 (``multihost.initialize``), each
+    against ``bundle_adjust_cg`` on the same problem: median centre error
+    within 1.5x the single device's + 1 mm and under 0.8x the start's, and
+    every camera translation within 2e-3 m of the single device's
+    (tests/test_dist_ba.py's tolerance; a lost shard's sum would leave its
+    copies' cameras near the start).
+    Global BA's ``dist`` rung on phase 9's map (``make_mesh()``, and 4
+    shards) beside the ``cg`` and dense rungs from one state: camera
+    centres within 2 cm.  ``distributed_pose_graph`` on 4 shards against
+    ``optimize_pose_graph_cg``: R and t within 5e-3.  Every engine's time
+    is printed with the card's name and power limit; nothing is claimed
+    for scaling, every shard being on the one card.
+13. The viewer: ``LiveViewer`` on port 0 while a pipelined ``System``
+    tracks phase 5's first 12 frames, ``/state`` fetched after every frame:
+    tests/test_viewer.py's fields, no synchronizing CUDA call inside a
+    dispatch (phase 7's watch) nor in the viewer's thread while it serves,
+    fast_score and brief_canvas once a frame.
+14. The renderer: ``TorchRenderer`` on the card against the numpy renderer
+    on 3 frames of ``SyntheticStream``'s loop world (60 m radius, seed 11)
+    at 1241x376, tests/test_render_jax.py's gates (median |diff| <= 1,
+    under 2% of pixels off by more than 2); ms a frame beside the host's
+    numpy time.
 
-The two loop sequences and phase 10b's sequence render in worker
-processes while phases 2-7 run on the card.
+The two loop sequences, phase 10b's sequence and phase 14's numpy
+renders are made in worker processes while phases 2-7 run on the card.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -133,6 +159,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import datetime
 import multiprocessing
 import json
 import os
@@ -141,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from collections import Counter
 import warnings
 
@@ -149,6 +177,8 @@ import torch
 
 from pyorbslam_tpu_torch import convert
 from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_tpu_torch.io import synthetic
+from pyorbslam_tpu_torch.io.render_torch import TorchRenderer
 from pyorbslam_tpu_torch.io.synthetic import generate_sequence
 from pyorbslam_tpu_torch.native import mapcore_ffi
 from pyorbslam_tpu_torch.ops import atlas, fast, kernels
@@ -156,13 +186,19 @@ from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
 from pyorbslam_tpu_torch.ops.extractor import level_keypoints
+from pyorbslam_tpu_torch.optim import ba, ba_cg
+from pyorbslam_tpu_torch.optim.pose_graph import optimize_pose_graph_cg
+from pyorbslam_tpu_torch.parallel import dist_ba, multihost
 from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
 from pyorbslam_tpu_torch.slam.system import System
 from pyorbslam_tpu_torch.slam.tracking import Tracker, fused_track_chain_step
+from pyorbslam_tpu_torch.tools import gba_tiling
+from pyorbslam_tpu_torch.tools import multihost_dryrun as dryrun
 from pyorbslam_tpu_torch.tools.timing import time_graph_ms, time_ms, time_stream_ms
 from pyorbslam_tpu_torch.utils import checkpoint
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
+from pyorbslam_tpu_torch.viz.live_viewer import LiveViewer
 
 N_FRAMES = 34
 N_FRAMES_PER_LEVEL = 12   # length of the use_atlas=False System runs
@@ -175,6 +211,16 @@ TIER1_LOOP = dict(n_frames=92, width=512, height=160, n_features=1000)
 # window_feed: about 2 m a window at KITTI-like depths)
 WINDOW = 4
 FEED_SEQ = dict(trajectory="straight", speed=0.5, seed=3)
+# phase 12: shards of the sharded engines on the one card, and
+# tests/test_dist_gba_scale.py's tiling
+SHARDS = 4
+GBA_TILE = dict(min_cams=512, min_obs=200_000)
+GBA_ITERS = dict(iters1=3, iters2=0, cg_iters=48)
+SHARD_T_TOL = 2e-3        # tests/test_dist_ba.py: sharded against one device, m
+# phase 13: frames tracked while the viewer is polled; phase 14: the loop
+# scene's frames the renderer draws
+N_VIEWER_FRAMES = 12
+RENDER_FRAMES = (0, 32, 64)
 WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
@@ -231,10 +277,29 @@ def make_sequence(n_frames: int = N_FRAMES):
     return seq, config_of(seq, N_FEATURES)
 
 
+def loop_scene_reference() -> dict:
+    """Phase 14's reference: ``SyntheticStream``'s full-width loop world
+    (60 m radius, seed 11) and its numpy renders of ``RENDER_FRAMES``
+    (left camera), each timed on the host."""
+    stream = synthetic.SyntheticStream(n_frames=N_LOOP_FRAMES, width=WIDTH,
+                                       height=HEIGHT, **LOOP_SEQ)
+    frames, host_s = [], []
+    for i in RENDER_FRAMES:
+        t0 = time.perf_counter()
+        frames.append(synthetic._to_u8(synthetic.render_view(
+            stream.poses_wc[i], stream.K, WIDTH, HEIGHT, stream._planes,
+            stream._tex)))
+        host_s.append(time.perf_counter() - t0)
+    return dict(planes=stream._planes, tex=stream._tex, K=stream.K,
+                poses=stream.poses_wc[list(RENDER_FRAMES)], frames=frames,
+                host_s=host_s)
+
+
 def start_renders(pool):
-    """Render the two loop sequences and phase 10b's sequence in worker
-    processes while the card runs phases 2-7: (full-width loop, tier-1
-    loop, window_feed sequence) futures."""
+    """Render the two loop sequences, phase 10b's sequence and phase 14's
+    reference in worker processes while the card runs phases 2-7:
+    (full-width loop, tier-1 loop, window_feed sequence, loop scene
+    reference) futures."""
     full = pool.submit(generate_sequence, n_frames=N_LOOP_FRAMES, width=WIDTH,
                        height=HEIGHT, **LOOP_SEQ)
     small = pool.submit(generate_sequence, n_frames=TIER1_LOOP["n_frames"],
@@ -242,7 +307,7 @@ def start_renders(pool):
                         **LOOP_SEQ)
     feed = pool.submit(generate_sequence, n_frames=N_FRAMES, width=WIDTH,
                        height=HEIGHT, **FEED_SEQ)
-    return full, small, feed
+    return full, small, feed, pool.submit(loop_scene_reference)
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -1005,7 +1070,7 @@ def run_loop_tier1(seq, device) -> dict:
         f"cg against dense {gap:.5f} m")
     require(out["dense"][2]["ran"] and out["cg"][2]["ran"], f"{which}: a BA did not run")
     require(gap < 0.02, f"{which}: cg and dense global BA differ by {gap:.4f} m")
-    return dict(ate_corr=ate_corr, closed=loops["closed"])
+    return dict(ate_corr=ate_corr, closed=loops["closed"], system=system)
 
 
 def run_kidnap(seq, system, n_frames: int) -> None:
@@ -1164,6 +1229,196 @@ def run_checkpoint(system, seq) -> None:
     require(inliers > 30, f"checkpoint: {inliers} inliers on the last frame")
 
 
+def synced(fn):
+    """``fn()`` between two ``torch.cuda.synchronize``: (result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def median_centre_err(cam_Tcw, true_c) -> float:
+    cam = cam_Tcw.cpu().numpy() if isinstance(cam_Tcw, torch.Tensor) else cam_Tcw
+    c = gba_tiling.centres(cam[:, :3, :3], cam[:, :3, 3])
+    return float(np.median(np.linalg.norm(c - true_c, axis=1)))
+
+
+def sharded_ba(prob, mesh):
+    """The sharded CG BA of the tiled ``prob`` over ``mesh``, its shards
+    placed first: (Tcw, seconds of the solve)."""
+    shards = dist_ba.shard_problem(dryrun.group_for_shards(prob, mesh.n_shards), mesh)
+    return synced(lambda: dist_ba.distributed_bundle_adjust_cg(
+        shards, mesh, n_cam=prob.cam_Tcw.shape[0], **GBA_ITERS)[0])
+
+
+def run_sharded(tiled, loop_system, device, smi: str) -> None:
+    """Phase 12: the sharded engines on the one card.  Phase 5's map tiled
+    as tests/test_dist_gba_scale.py tiles its own, through the sharded CG
+    BA on SHARDS shards of the card and on an NCCL group of world size 1,
+    against the single-device CG; global BA's dist rung on phase 9's map
+    beside the cg and dense rungs; the sharded essential graph against the
+    single-device CG solver.  No scaling is claimed: every shard is on
+    the one card."""
+    prob, true_c = tiled.prob, tiled.true_centres
+    C, O = prob.cam_Tcw.shape[0], prob.obs_cam.shape[0]
+    err_start = median_centre_err(prob.cam_Tcw.numpy(), true_c)
+    on_card = ba.BAProblem(*(t.to(device) for t in prob))
+    one, t_one = synced(lambda: ba_cg.bundle_adjust_cg(on_card, **GBA_ITERS).cam_Tcw)
+    mesh = dist_ba.device_mesh(device, SHARDS)
+    shard_cam, t_shard = sharded_ba(prob, mesh)
+    multihost.initialize(f"tcp://localhost:{dryrun.free_port()}", 1, 0, device,
+                         timeout=datetime.timedelta(seconds=300))
+    try:
+        gmesh = multihost.global_mesh()
+        require(gmesh.n_shards == torch.cuda.device_count(),
+                f"NCCL mesh of {gmesh.n_shards} shards")
+        # the communicator is made at the first collective: not the solve's
+        synced(lambda: gmesh.reduce([torch.ones(1, device=device)]))
+        nccl_cam, t_nccl = sharded_ba(prob, gmesh)
+    finally:
+        multihost.shutdown()
+    e_one = median_centre_err(one, true_c)
+    which = f"sharded CG BA, {C} cameras, {O} observations ({tiled.copies} copies)"
+    log(f"{which}, {GBA_ITERS} on {smi}: median centre error start "
+        f"{err_start:.5f} m; one device {e_one:.5f} m in {1e3 * t_one:.1f} ms")
+    for name, cam, t in ((f"{SHARDS} shards on {device}", shard_cam, t_shard),
+                         ("NCCL group of world size 1", nccl_cam, t_nccl)):
+        err = median_centre_err(cam, true_c)
+        gap = float(torch.abs(cam[:, :3, 3] - one[:, :3, 3]).max())
+        log(f"  {name}: {err:.5f} m in {1e3 * t:.1f} ms; largest translation "
+            f"difference from one device {gap:.2e} m")
+        require(bool(torch.isfinite(cam).all()), f"{which}, {name}: non-finite pose")
+        require(err < 1.5 * e_one + 1e-3,
+                f"{which}, {name}: {err:.5f} m against {e_one:.5f} m on one device")
+        require(err < 0.8 * err_start,
+                f"{which}, {name}: {err:.5f} m against {err_start:.5f} m at the start")
+        require(gap < SHARD_T_TOL, f"{which}, {name}: translations {gap:.2e} m "
+                f"from one device's")
+
+    # global BA's rungs on phase 9's map, from one state
+    m = loop_system.map
+    ks, lm = m.keyframes, m.landmarks
+    live = [k for k in range(ks.n) if ks.alive[k]]
+    pnt = m.core.observed_landmarks(lm.n)
+    snap_Tcw, snap_pos = ks.Tcw[: ks.n].copy(), lm.pos[: lm.n].copy()
+    out = {}
+    for name, engine, rung_mesh in (("dense", "dense", None), ("cg", "cg", None),
+                                    ("dist", "dist", None),
+                                    (f"dist {SHARDS} shards", "dist", mesh)):
+        ks.Tcw[: ks.n], lm.pos[: lm.n] = snap_Tcw, snap_pos
+        info, t = synced(lambda: m._run_ba(live, len(live), pnt, 2, 0, False,
+                                           engine=engine, mesh=rung_mesh))
+        require(info["ran"], f"global BA {name}: did not run")
+        out[name] = (gba_tiling.centres(ks.Tcw[: ks.n, :3, :3], ks.Tcw[: ks.n, :3, 3]), t)
+    gaps = {name: float(np.linalg.norm(c - out[ref][0], axis=1).max())
+            for name, (c, _) in out.items() if name.startswith("dist")
+            for ref in ("cg", "dense")}
+    log(f"  global BA of phase 9's map, 2 iterations over {len(live)} keyframes: "
+        + ", ".join(f"{n} {1e3 * t:.1f} ms" for n, (_, t) in out.items())
+        + f"; dist rungs against cg and dense at most {max(gaps.values()):.5f} m")
+    require(max(gaps.values()) < 0.02, f"global BA: dist rung {gaps} m from cg / dense")
+
+    # the sharded essential graph
+    _, _, pg_args = dryrun.drift_graph(*dryrun.PG_GRAPH)
+    args = [torch.from_numpy(np.asarray(a)).to(device) for a in pg_args]
+    ref, t_ref = synced(lambda: optimize_pose_graph_cg(
+        *args, cg_iters=dryrun.PG_CG_ITERS))
+    (R, t), t_pg = synced(lambda: dryrun.solve_pose_graph(pg_args, mesh))
+    dR = float(torch.abs(R - ref.R).max())
+    dt = float(torch.abs(t - ref.t).max())
+    log(f"  essential graph, {len(pg_args[4])} edges: one device {1e3 * t_ref:.1f} ms, "
+        f"{SHARDS} shards {1e3 * t_pg:.1f} ms; largest R / t difference "
+        f"{dR:.2e} / {dt:.2e}")
+    require(dR < 5e-3 and dt < 5e-3, f"sharded essential graph: R {dR}, t {dt}")
+
+
+def run_viewer(seq, cfg, device) -> None:
+    """Phase 13: ``LiveViewer`` on port 0 over a pipelined ``System``,
+    ``/state`` fetched after every frame under the sync watch: the fields
+    of tests/test_viewer.py, no synchronizing CUDA call in a dispatch or
+    in the viewer's thread, the atlas kernels once a frame."""
+    which = f"viewer over System pipelined, {N_VIEWER_FRAMES} frames"
+    system = System(cfg, device, keyframe_capacity=256)
+    syncs = watch_dispatch_syncs(system)
+    viewer = LiveViewer(system, port=0).start()
+    base = f"http://127.0.0.1:{viewer.port}"
+    state_syncs, fetch_s = [], []
+
+    def get_state():
+        t0 = time.perf_counter()
+        st = json.loads(urllib.request.urlopen(f"{base}/state", timeout=60).read())
+        fetch_s.append(time.perf_counter() - t0)
+        return st
+
+    fetch = _sync_watched(get_state, state_syncs)
+    fields = {"points", "kf_xy", "covis", "traj", "cam", "status", "keypoints",
+              "frame"}
+    try:
+        page = urllib.request.urlopen(f"{base}/", timeout=60).read()
+        require(b"follow camera" in page, f"{which}: no page")
+        kernels.reset_launch_counts()
+        lengths = []
+        t0 = time.perf_counter()
+        for i in range(N_VIEWER_FRAMES):
+            system._viewer_image = seq.left[i]
+            system.track_stereo_async(seq.left[i], seq.right[i], seq.timestamps[i])
+            st = fetch()
+            require(fields <= set(st), f"{which}: /state after frame {i}: {sorted(st)}")
+            lengths.append(len(st["traj"]))
+        system.flush_async()
+        elapsed = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        st = fetch()
+        system.shutdown()
+    finally:
+        viewer.stop()
+    log(f"{which}: {elapsed:.2f} s with a /state fetch a frame, trajectory "
+        f"lengths {lengths} then {len(st['traj'])}, status {st['status']}, "
+        f"{len(st['points'])} points, {len(st['keypoints'])} keypoints, launches "
+        f"{counts}")
+    report_dispatch_syncs(which, syncs)
+    where = sorted({w for x in state_syncs for w in x})
+    log(f"  synchronizing CUDA calls during the {len(state_syncs)} /state fetches: "
+        f"{sum(len(x) for x in state_syncs)}" + (f", from {where}" if where else "")
+        + f"; a fetch {1e3 * np.mean(fetch_s):.2f} ms on average, "
+        f"{1e3 * max(fetch_s):.2f} ms at most")
+    require(not where, f"{which}: the viewer synchronized at {where}")
+    require(lengths == sorted(lengths), f"{which}: trajectory lengths {lengths}")
+    require(st["status"]["kfs"] >= 1 and st["status"]["lms"] > 100,
+            f"{which}: status {st['status']}")
+    require(len(st["points"]) > 0 and st["cam"] is not None and bool(st["frame"]),
+            f"{which}: empty state")
+    require(len(st["traj"]) == N_VIEWER_FRAMES, f"{which}: {len(st['traj'])} poses")
+    require(st["traj"][-1][1] > 3.0, f"{which}: camera at {st['traj'][-1]}")
+    for name in ATLAS_KERNELS:
+        require(counts[name] == N_VIEWER_FRAMES,
+                f"{which}: {name} launched {counts[name]} times")
+
+
+def run_renderer(ref, device, smi: str) -> None:
+    """Phase 14: ``TorchRenderer`` on the card against the numpy renderer
+    on the loop scene's frames, tests/test_render_jax.py's gates."""
+    r = TorchRenderer(ref["planes"], ref["tex"], device)
+    K = ref["K"]
+    synced(lambda: r.render_tensor(ref["poses"][0], K, WIDTH, HEIGHT))   # warm
+    card_s = []
+    for i, (Twc, want) in zip(RENDER_FRAMES, zip(ref["poses"], ref["frames"])):
+        got, t = synced(lambda: r.render_tensor(Twc, K, WIDTH, HEIGHT))
+        card_s.append(t)
+        d = np.abs(got.cpu().numpy().astype(np.int32) - want.astype(np.int32))
+        med, frac = float(np.median(d)), float((d > 2).mean())
+        log(f"renderer, loop scene frame {i} at {WIDTH}x{HEIGHT} "
+            f"({len(ref['planes'])} planes): median |diff| {med}, share off by "
+            f"more than 2: {frac:.5f}, largest |diff| {int(d.max())}, "
+            f"{int((d > 0).sum())} of {d.size} pixels unequal")
+        require(med <= 1.0 and frac < 0.02, f"renderer frame {i}: {med}, {frac}")
+    log(f"  TorchRenderer {1e3 * np.mean(card_s):.2f} ms a frame on {smi} "
+        f"({[round(1e3 * t, 2) for t in card_s]}); numpy on the host "
+        f"{1e3 * np.mean(ref['host_s']):.1f} ms a frame, in a worker process "
+        f"beside the card's phases")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1242,7 +1497,7 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
         f"{per_level['fps']:.3f}, pipelined {per_level_async['fps']:.3f}")
 
     t0 = time.perf_counter()
-    full_seq, small_seq, feed_seq = (f.result() for f in renders)
+    full_seq, small_seq, feed_seq = (f.result() for f in renders[:3])
     log(f"loop and window_feed sequences rendered ({time.perf_counter() - t0:.1f} s "
         f"waited for)")
     full = run_loop_full_width(full_seq, device)
@@ -1263,7 +1518,11 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
         f"{window['ate']:.4f} m (per frame {ate_sync:.4f}); window_feed "
         f"{fed['fps']:.3f} frames/s, ATE {fed['ate']:.4f} m (per frame "
         f"{feed_per_frame['ate']:.4f})")
+    tiled = gba_tiling.tile(main_path["system"].map, cfg, pad_to=SHARDS, **GBA_TILE)
     run_checkpoint(main_path["system"], seq)
+    run_sharded(tiled, tier1["system"], device, smi)
+    run_viewer(seq, cfg, device)
+    run_renderer(renders[3].result(), device, smi)
 
     # launches: each kernel's count from the System run of its own path;
     # the main path is the pipelined schedule

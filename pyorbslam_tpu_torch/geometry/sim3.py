@@ -28,6 +28,20 @@ class Sim3(NamedTuple):
     t: torch.Tensor  # (..., 3)
     s: torch.Tensor  # (...,)
 
+    @staticmethod
+    def identity(batch=(), dtype=torch.float32, device=None) -> "Sim3":
+        return Sim3(
+            R=torch.eye(3, dtype=dtype, device=device).expand(
+                tuple(batch) + (3, 3)),
+            t=torch.zeros(tuple(batch) + (3,), dtype=dtype, device=device),
+            s=torch.ones(tuple(batch), dtype=dtype, device=device),
+        )
+
+    @staticmethod
+    def from_se3(T: torch.Tensor) -> "Sim3":
+        return Sim3(R=T[..., :3, :3], t=T[..., :3, 3],
+                    s=torch.ones(T.shape[:-2], dtype=T.dtype, device=T.device))
+
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", A, x)

@@ -1,8 +1,10 @@
-"""Synthetic textured stereo-world generator (numpy renderer).
+"""Synthetic textured stereo-world generator.
 
-A copy of ``pyorbslam_tpu/io/synthetic.py`` without its JAX renderer
-branch, so the port can render its own frames where JAX is absent.  The
-same arguments give the same images as the JAX package's numpy renderer.
+A copy of ``pyorbslam_tpu/io/synthetic.py`` whose device renderer branch
+is ``io/render_torch.py`` (``SyntheticStream(render_backend="torch")``)
+in place of the JAX one, so the port renders its own frames where JAX is
+absent.  The same arguments give the same images as the JAX package's
+numpy renderer.
 
 The reference validates end-to-end against KITTI sequences
 (stereo_kitti.py); no KITTI data ships with the repository, so integration
@@ -498,6 +500,8 @@ class SyntheticStream:
     laps: float = 1.0
     scene: str = "corridor"   # "corridor" | "interior" (pillar rings)
     cache_dir: Optional[str] = None   # per-frame render cache (npz)
+    render_backend: str = "numpy"     # "numpy" | "torch" (io/render_torch.py)
+    render_device: str = "cuda"       # the torch renderer's device
 
     def __post_init__(self):
         scene_width = 16.0
@@ -544,7 +548,10 @@ class SyntheticStream:
         path = None
         if self.cache_dir is not None:
             os.makedirs(self.cache_dir, exist_ok=True)
-            key = (f"{self.trajectory}_{self.scene}{_SCENE_VERSION}_"
+            # a world is rendered entirely by ONE backend (pixel-exact
+            # parity across backends is not guaranteed): distinct keys
+            bk = "" if self.render_backend == "numpy" else "th_"
+            key = (f"{self.trajectory}_{self.scene}{_SCENE_VERSION}_{bk}"
                    f"{self.width}x{self.height}_{self.loop_radius}_"
                    f"{self.laps}_{self.seed}_{self.n_frames}_{i}")
             path = os.path.join(self.cache_dir, f"sf_{key}.npz")
@@ -555,11 +562,23 @@ class SyntheticStream:
         Twc_r = Twc.copy()
         Twc_r[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array(
             [self.baseline, 0.0, 0.0])
-        left = render_view(Twc, self.K, self.width, self.height,
-                           self._planes, self._tex)
-        right = render_view(Twc_r, self.K, self.width, self.height,
-                            self._planes, self._tex)
-        lu, ru = _to_u8(left), _to_u8(right)
+        if self.render_backend == "torch":
+            if not hasattr(self, "_torch_renderer"):
+                from pyorbslam_tpu_torch.io.render_torch import TorchRenderer
+                self._torch_renderer = TorchRenderer(
+                    self._planes, self._tex, self.render_device)
+            lu = self._torch_renderer.render(
+                Twc, self.K, self.width, self.height)
+            ru = self._torch_renderer.render(
+                Twc_r, self.K, self.width, self.height)
+        elif self.render_backend == "numpy":
+            left = render_view(Twc, self.K, self.width, self.height,
+                               self._planes, self._tex)
+            right = render_view(Twc_r, self.K, self.width, self.height,
+                                self._planes, self._tex)
+            lu, ru = _to_u8(left), _to_u8(right)
+        else:
+            raise ValueError(f"unknown render backend {self.render_backend!r}")
         if path is not None:
             np.savez_compressed(path, l=lu, r=ru)
         return lu, ru

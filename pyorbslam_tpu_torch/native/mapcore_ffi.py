@@ -87,6 +87,14 @@ def _load():
     return lib
 
 
+def available() -> bool:
+    """True when the map core builds and loads here (``g++`` present)."""
+    try:
+        return _load() is not None
+    except (RuntimeError, OSError):
+        return False
+
+
 def _i32p(a: np.ndarray):
     return a.ctypes.data_as(_I32)
 

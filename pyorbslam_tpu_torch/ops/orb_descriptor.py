@@ -120,6 +120,39 @@ def _angle_deg(m01: torch.Tensor, m10: torch.Tensor) -> torch.Tensor:
     return torch.where(ang < 0, ang + 360.0, ang)
 
 
+def _moment_weights() -> Tuple[np.ndarray, np.ndarray]:
+    """(961,) weights: m10 = patch . wx and m01 = patch . wy over the
+    circular patch."""
+    umax = umax_table()
+    hp = HALF_PATCH_SIZE
+    wx = np.zeros((PATCH_SIZE, PATCH_SIZE), np.float32)
+    wy = np.zeros((PATCH_SIZE, PATCH_SIZE), np.float32)
+    for dv in range(-hp, hp + 1):
+        d = umax[abs(dv)]
+        for du in range(-d, d + 1):
+            wx[dv + hp, du + hp] = du
+            wy[dv + hp, du + hp] = dv
+    return wx.reshape(-1), wy.reshape(-1)
+
+
+def ic_angle(padded_level: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation in degrees [0, 360), the reference
+    formulation (IC_Angle, ORBextractor.cpp:77-104): a 31x31 patch gathered
+    per keypoint from the *unblurred* reflect-padded level, dotted with the
+    moment weights.  Kept for golden tests; the extractor uses
+    :func:`ic_angles_at` (the same sums without per-keypoint patches)."""
+    hp = HALF_PATCH_SIZE
+    dev = padded_level.device
+    offs = np.arange(-hp, hp + 1)
+    dyg, dxg = np.meshgrid(offs, offs, indexing="ij")
+    patches = gather_patches(
+        padded_level, xy, torch.as_tensor(dyg.reshape(-1), device=dev),
+        torch.as_tensor(dxg.reshape(-1), device=dev))       # (N, 961)
+    wx, wy = (torch.as_tensor(w, device=dev) for w in _moment_weights())
+    return _angle_deg(torch.sum(patches * wy, dim=1),
+                      torch.sum(patches * wx, dim=1))
+
+
 def moment_maps(padded_level: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-image intensity-centroid moment maps (m10, m01) of a
     (H + 2*BORDER, W + 2*BORDER) padded level, from row cumulative sums:

@@ -13,7 +13,8 @@ Two interchangeable solvers over the same edge algebra:
   normal matrix, one solve per iteration;
 * :func:`optimize_pose_graph_cg`: the same damped normal equations solved
   matrix-free with block-Jacobi preconditioned CG over the edge list
-  (``ba_cg._pcg``), O(E + C) memory.
+  (``ba_cg._pcg_shards``), O(E + C) memory; its body also runs over edge
+  shards, which is ``parallel/dist_pose_graph.py``.
 
 Scale components are frozen for stereo (bFixScale).  Each LM iteration's
 accept / reject is a ``torch.where`` and the solves are the ``_ex``
@@ -30,7 +31,7 @@ import torch
 from pyorbslam_tpu_torch.geometry import sim3 as sim3_mod
 from pyorbslam_tpu_torch.geometry.sim3 import Sim3
 from pyorbslam_tpu_torch.optim.ba import _bmv
-from pyorbslam_tpu_torch.optim.ba_cg import _pcg, _segment_sum
+from pyorbslam_tpu_torch.optim.ba_cg import _identity, _pcg_shards, _segment_sum
 
 
 class PoseGraphResult(NamedTuple):
@@ -76,17 +77,27 @@ def _free_mask(fixed, fix_scale: bool):
     return free   # (C, 7)
 
 
-def _accept_step(state, dx, fixed, e_i, e_j, meas, w, lam):
+def _retract_free(state: Sim3, dx, fixed) -> Sim3:
+    """The LM candidate: ``state`` moved by ``dx``, fixed vertices kept."""
     new_state = sim3_mod.retract(state, dx)
-    new_state = Sim3(
+    return Sim3(
         R=torch.where(fixed[:, None, None], state.R, new_state.R),
         t=torch.where(fixed[:, None], state.t, new_state.t),
         s=torch.where(fixed, state.s, new_state.s),
     )
-    better = (_total_err(new_state, e_i, e_j, meas, w)
-              < _total_err(state, e_i, e_j, meas, w))
+
+
+def _choose(better, new_state: Sim3, state: Sim3, lam):
+    """LM accept / reject on the device."""
     state = Sim3(*(torch.where(better, a, c) for a, c in zip(new_state, state)))
     return state, torch.where(better, lam * 0.5, lam * 5.0)
+
+
+def _accept_step(state, dx, fixed, e_i, e_j, meas, w, lam):
+    new_state = _retract_free(state, dx, fixed)
+    better = (_total_err(new_state, e_i, e_j, meas, w)
+              < _total_err(state, e_i, e_j, meas, w))
+    return _choose(better, new_state, state, lam)
 
 
 def _normal_blocks(r, Ji, Jj, w):
@@ -142,6 +153,58 @@ def optimize_pose_graph(
     return PoseGraphResult(R=state.R, t=state.t, s=state.s)
 
 
+def _pose_graph_cg_shards(states, fixed, edges, iters: int, fix_scale: bool,
+                         cg_iters: int, reduce):
+    """The CG solver over edge shards in lock-step.  ``states`` (Sim3) and
+    ``fixed`` hold the replicated vertices, one entry per shard; ``edges``
+    holds each shard's (e_i, e_j, measurement Sim3, weight).  ``reduce``
+    sums a vertex-space quantity over the shards (``ba_cg.Reduce``): once
+    for ``b`` and ``D`` per LM step, once in each CG matrix-vector product
+    and once for the two costs.  Returns the states, one per shard."""
+    C = states[0].t.shape[0]
+    dt = states[0].t.dtype
+    free = [_free_mask(f, fix_scale) for f in fixed]
+    eye7 = [torch.eye(7, dtype=dt, device=f.device) for f in fixed]
+    lam = [1e-8] * len(states)
+    for _ in range(iters):
+        blocks = [_normal_blocks(*_residual_and_jac(st, e_i, e_j, meas), w)
+                  for st, (e_i, e_j, meas, w) in zip(states, edges)]
+        b = reduce([_segment_sum(b_i, e_i, C) + _segment_sum(b_j, e_j, C)
+                    for (_, _, _, b_i, b_j), (e_i, e_j, _, _) in zip(blocks, edges)])
+        # block diagonal of H (masked), shared by damping and preconditioner
+        D = reduce([_segment_sum(A_ii, e_i, C) + _segment_sum(A_jj, e_j, C)
+                    for (A_ii, A_jj, _, _, _), (e_i, e_j, _, _) in zip(blocks, edges)])
+        bf = [bs * f for bs, f in zip(b, free)]
+        D = [Ds * f[:, :, None] * f[:, None, :] for Ds, f in zip(D, free)]
+        diag = [torch.diagonal(Ds, dim1=1, dim2=2) for Ds in D]   # (C, 7)
+
+        def matvec(vs, _lam=lam, _diag=diag, _blocks=blocks):
+            parts = []
+            for v, f, (A_ii, A_jj, A_ij, _, _), (e_i, e_j, _, _) in zip(
+                    vs, free, _blocks, edges):
+                vf = v * f
+                yi = _bmv(A_ii, vf[e_i]) + _bmv(A_ij, vf[e_j])
+                yj = _bmv(A_ij.transpose(-1, -2), vf[e_i]) + _bmv(A_jj, vf[e_j])
+                parts.append(_segment_sum(yi, e_i, C) + _segment_sum(yj, e_j, C))
+            # damping / identity terms match the dense solver exactly
+            return [y * f + (1.0 - f) * v + lm * dg * (v * f) + 1e-8 * v
+                    for y, v, f, lm, dg in zip(reduce(parts), vs, free, _lam, _diag)]
+
+        Minv = [torch.linalg.inv_ex(
+            Ds + lm * dg[:, :, None] * e7 + 1e-8 * e7
+            + e7 * (1.0 - f)[:, :, None]).inverse
+            for Ds, lm, dg, e7, f in zip(D, lam, diag, eye7, free)]
+        dx = _pcg_shards(matvec, bf, Minv, cg_iters)
+        new = [_retract_free(st, -d, fx) for st, d, fx in zip(states, dx, fixed)]
+        errs = reduce([torch.stack([_total_err(n, e_i, e_j, meas, w),
+                                    _total_err(st, e_i, e_j, meas, w)])
+                       for n, st, (e_i, e_j, meas, w) in zip(new, states, edges)])
+        states, lam = map(list, zip(*(
+            _choose(err[0] < err[1], n, st, lm)
+            for err, n, st, lm in zip(errs, new, states, lam))))
+    return states
+
+
 def optimize_pose_graph_cg(
     R: torch.Tensor, t: torch.Tensor, s: torch.Tensor, fixed: torch.Tensor,
     e_i: torch.Tensor, e_j: torch.Tensor,
@@ -152,35 +215,8 @@ def optimize_pose_graph_cg(
     """Matrix-free variant of :func:`optimize_pose_graph` (same arguments,
     same damping and acceptance), solving each LM step by block-Jacobi
     preconditioned CG over the edge list."""
-    C = R.shape[0]
-    dt, dev = t.dtype, t.device
-    e_i, e_j = e_i.long(), e_j.long()
-    meas = Sim3(R=m_R, t=m_t, s=m_s)
-    free = _free_mask(fixed, fix_scale)
-    w = e_active.to(dt)
-    eye7 = torch.eye(7, dtype=dt, device=dev)
-    state, lam = Sim3(R=R, t=t, s=s), 1e-8
-    for _ in range(iters):
-        r, Ji, Jj = _residual_and_jac(state, e_i, e_j, meas)
-        A_ii, A_jj, A_ij, b_i, b_j = _normal_blocks(r, Ji, Jj, w)
-        bf = (_segment_sum(b_i, e_i, C) + _segment_sum(b_j, e_j, C)) * free
-
-        # block diagonal of H (masked), shared by damping and preconditioner
-        D = _segment_sum(A_ii, e_i, C) + _segment_sum(A_jj, e_j, C)
-        D = D * free[:, :, None] * free[:, None, :]
-        diag = torch.diagonal(D, dim1=1, dim2=2)           # (C, 7) masked
-
-        def matvec(v, _lam=lam, _diag=diag):
-            vf = v * free
-            yi = _bmv(A_ii, vf[e_i]) + _bmv(A_ij, vf[e_j])
-            yj = _bmv(A_ij.transpose(-1, -2), vf[e_i]) + _bmv(A_jj, vf[e_j])
-            y = (_segment_sum(yi, e_i, C) + _segment_sum(yj, e_j, C)) * free
-            # damping / identity terms match the dense solver exactly
-            return y + (1.0 - free) * v + _lam * _diag * vf + 1e-8 * v
-
-        Dd = (D + lam * diag[:, :, None] * eye7 + 1e-8 * eye7
-              + eye7 * (1.0 - free)[:, :, None])
-        Minv = torch.linalg.inv_ex(Dd).inverse
-        dx = -_pcg(matvec, bf, Minv, cg_iters)
-        state, lam = _accept_step(state, dx, fixed, e_i, e_j, meas, w, lam)
+    edges = (e_i.long(), e_j.long(), Sim3(R=m_R, t=m_t, s=m_s),
+             e_active.to(t.dtype))
+    state, = _pose_graph_cg_shards([Sim3(R=R, t=t, s=s)], [fixed], [edges],
+                                   iters, fix_scale, cg_iters, _identity)
     return PoseGraphResult(R=state.R, t=state.t, s=state.s)

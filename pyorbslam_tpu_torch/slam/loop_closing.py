@@ -136,6 +136,17 @@ class LoopCloser:
     def device(self) -> torch.device:
         return self.map.device
 
+    def _pose_graph_mesh(self, big: bool):
+        """The mesh the essential graph is sharded over
+        (``parallel/dist_pose_graph.py``): above the CG threshold, every
+        CUDA device where several are visible, as the JAX package shards
+        where it sees several devices; else None (one device)."""
+        if big and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            from pyorbslam_tpu_torch.parallel import dist_ba
+
+            return dist_ba.make_mesh()
+        return None
+
     def _up(self, a) -> torch.Tensor:
         # np.asarray keeps a 0-dim array 0-dim (ascontiguousarray does not)
         return upload(np.asarray(a, order="C"), self.device)
@@ -629,20 +640,29 @@ class LoopCloser:
             ms_np = np.concatenate(
                 [np.array(msc, np.float32), np.ones(padE, np.float32)])
             e_valid = np.arange(Eb) < E
-            # (the JAX package shards the CG solve over a device mesh when
-            # it sees several devices; that engine is ROADMAP.md queue 1,
-            # item 21, and the single-device CG computes the same solve)
             big = C > self.cfg.ba.pose_graph_cg_threshold
-            U = self._up
-            args = (U(Rs), U(tss), U(ss), U(fixed), U(e_i_np), U(e_j_np),
-                    U(mR_np), U(mt_np), U(ms_np), U(e_valid))
-            if big:
-                res = optimize_pose_graph_cg(
-                    *args, iters=self.cfg.ba.pose_graph_iters,
+            mesh = self._pose_graph_mesh(big)
+            if mesh is not None:
+                from pyorbslam_tpu_torch.parallel import dist_pose_graph
+
+                pe = dist_pose_graph.pad_edges(
+                    mesh.n_shards, e_i_np, e_j_np, mR_np, mt_np, ms_np, e_valid)
+                reps, shds = dist_pose_graph.place_pose_graph(
+                    mesh, [Rs, tss, ss, fixed], list(pe))
+                res = dist_pose_graph.distributed_pose_graph(
+                    mesh, *reps, *shds, iters=self.cfg.ba.pose_graph_iters,
                     cg_iters=self.cfg.ba.pose_graph_cg_iters)
             else:
-                res = optimize_pose_graph(
-                    *args, iters=self.cfg.ba.pose_graph_iters)
+                U = self._up
+                args = (U(Rs), U(tss), U(ss), U(fixed), U(e_i_np), U(e_j_np),
+                        U(mR_np), U(mt_np), U(ms_np), U(e_valid))
+                if big:
+                    res = optimize_pose_graph_cg(
+                        *args, iters=self.cfg.ba.pose_graph_iters,
+                        cg_iters=self.cfg.ba.pose_graph_cg_iters)
+                else:
+                    res = optimize_pose_graph(
+                        *args, iters=self.cfg.ba.pose_graph_iters)
             # one read: R (9 Cb) | t (3 Cb) | s (Cb)
             out = _pack_f32(res.R, res.t, res.s)
             newR = out[: 9 * Cb].reshape(Cb, 3, 3)

@@ -25,10 +25,9 @@ Reference semantics preserved:
 
 Global BA (:meth:`SlamMap.global_ba`, run by the loop closer) keeps the
 JAX package's engine ladder: the dense grid engine up to 96 live
-keyframes, the implicit-Schur CG engine (``optim/ba_cg.py``) above.  The
-multi-device ``dist`` rung is taken only where the JAX package takes it,
-with several devices of the map's kind visible, and raises
-``NotImplementedError`` there (ROADMAP.md queue 1, item 21).
+keyframes, the implicit-Schur CG engine (``optim/ba_cg.py``) above, and
+above that, where several CUDA devices are visible, the same CG engine
+sharded over a device mesh (``parallel/dist_ba.py``).
 """
 
 from __future__ import annotations
@@ -354,22 +353,20 @@ class SlamMap:
     def _run_ba(self, cams, n_free: int, pnt_ids,
                 iters1: int, iters2: int, erase_outliers: bool,
                 engine: str = "dense", split: bool = False,
-                max_move: Optional[float] = None) -> dict:
+                max_move: Optional[float] = None, mesh=None) -> dict:
         """Assemble bucketed fixed-shape arrays (native observation
         gather), dispatch the Schur BA (the dense grid engine, or
-        implicit-Schur CG at global scale), write back, optionally erase
-        outlier observations.  The buckets keep the device program
-        few-shaped (padding rows are inert), which is what a CUDA graph
-        capture needs later.  Every host array goes to the device
-        through pinned memory (``upload``), so a dispatch never waits for
-        the work queued before it."""
-        if engine == "dist":
-            raise NotImplementedError(
-                "the multi-device BA engine 'dist' is not ported yet "
-                "(ROADMAP.md queue 1, item 21: parallel/)")
-        if engine not in ("dense", "cg"):
+        implicit-Schur CG at global scale, on one device or sharded over
+        ``mesh``: ``parallel/dist_ba.make_mesh()`` where none is given),
+        write back, optionally erase outlier observations.  The buckets
+        keep the device program few-shaped (padding rows are inert), which
+        is what a CUDA graph capture needs later.  Every host array goes to
+        the device through pinned memory (``upload``), so a dispatch never
+        waits for the work queued before it."""
+        if engine not in ("dense", "cg", "dist"):
             raise ValueError(f"unknown BA engine {engine!r}")
-        cg = engine == "cg"
+        # dist is the CG engine sharded, with the same full-scale buckets
+        cg = engine in ("cg", "dist")
         cams = np.asarray(cams, np.int32)
         pnt_ids = np.asarray(pnt_ids, np.int32)
         C = _bucket(len(cams), CG_CAM_BUCKETS if cg else CAM_BUCKETS)
@@ -419,6 +416,11 @@ class SlamMap:
         def up(a):
             return upload(np.ascontiguousarray(a), dev)
 
+        if engine == "dist":
+            return self._run_ba_dist(
+                cams, cam_fixed, n_free, pnt_ids, cam_Tcw, oc, op, okf, oft,
+                ouvr, inv_sigma2, cam5, n_obs, iters1, iters2,
+                erase_outliers, max_move, mesh)
         if cg:
             return self._run_ba_cg(
                 cams, cam_fixed, n_free, pnt_ids, cam_Tcw, pnt_pos,
@@ -509,6 +511,51 @@ class SlamMap:
                                bitorder="little")[:O].astype(bool)
         return self._ba_writeback(
             cams, cam_fixed, n_free, pnt_ids, new_Tcw, new_pos, inlier,
+            op, okf, n_obs, erase_outliers, max_move=max_move)
+
+    def _run_ba_dist(self, cams, cam_fixed, n_free, pnt_ids, cam_Tcw, oc, op,
+                     okf, oft, ouvr, inv_sigma2, cam5, n_obs, iters1, iters2,
+                     erase_outliers, max_move, mesh):
+        """The ``dist`` rung of :meth:`_run_ba` (the JAX package's
+        ``slam_map.py:418-453``): P padded to a multiple of the shard
+        count, observations regrouped so each lands on its point's owner
+        shard, the sharded CG engine, one read, write back.  The
+        write-back erases nothing: the engine's inlier mask is in the
+        regrouped order."""
+        from pyorbslam_tpu_torch.parallel import dist_ba
+
+        if mesh is None:
+            if self.device.type != "cuda":
+                raise ValueError("the dist BA engine shards over CUDA devices; "
+                                 f"the map is on {self.device}: pass a mesh")
+            mesh = dist_ba.make_mesh()
+        n = mesh.n_shards
+        C = cam_Tcw.shape[0]
+        P = -(-_bucket(len(pnt_ids), CG_PNT_BUCKETS) // n) * n
+        pnt_pos = np.zeros((P, 3), np.float32)
+        pnt_pos[: len(pnt_ids)] = self.landmarks.pos[pnt_ids]
+        pnt_active = np.zeros(P, bool)
+        pnt_active[: len(pnt_ids)] = True
+        isig = inv_sigma2[self.keyframes.kp_octave[okf, oft]]
+        g_op, (g_oc, g_uvr, g_isig), g_act = \
+            dist_ba.group_observations_by_point_shard(
+                op.astype(np.int32), P, n,
+                (oc.astype(np.int32), ouvr, isig.astype(np.float32)))
+        t = torch.from_numpy
+        prob = ba.BAProblem(
+            cam_Tcw=t(cam_Tcw), cam_fixed=t(cam_fixed), pnt_pos=t(pnt_pos),
+            pnt_active=t(pnt_active), obs_cam=t(g_oc), obs_pnt=t(g_op),
+            obs_uvr=t(g_uvr), obs_inv_sigma2=t(g_isig), obs_active=t(g_act),
+            cam=cam5)
+        with self._t("ba.solve"):
+            d_cam, d_pnt, _ = dist_ba.distributed_bundle_adjust_cg(
+                dist_ba.shard_problem(prob, mesh), mesh, n_cam=C,
+                iters1=iters1, iters2=iters2)
+            out = torch.cat([d_cam.reshape(-1), d_pnt.reshape(-1)]).cpu().numpy()
+        new_Tcw = out[: 16 * C].reshape(C, 4, 4)
+        new_pos = out[16 * C:].reshape(P, 3)
+        return self._ba_writeback(
+            cams, cam_fixed, n_free, pnt_ids, new_Tcw, new_pos, None,
             op, okf, n_obs, erase_outliers, max_move=max_move)
 
     def local_ba_apply(self, pend: dict) -> dict:

@@ -6,7 +6,7 @@ Usage:
     python3 -m pyorbslam_tpu_torch.stereo_kitti --pathToSequence <seq_dir> \
         --pathToVocabulary <ORBvoc.txt or "auto"> \
         --pathToSettings <KITTIxx.yaml> [--output CameraTrajectory.txt] \
-        [--async | --window W] [--device cuda]
+        [--async | --window W] [--device cuda] [--viewer PORT]
 
 The sequence dir must contain image_2/, image_3/, times.txt (KITTI
 odometry layout).  Vocabulary "auto" (or a missing file) uses the shipped
@@ -17,7 +17,9 @@ Nothing falls back: with ``cuda`` and no CUDA device the command fails.
 The system runs with loop closing on, as the repository's CLI does.
 ``--window W`` tracks W frames a dispatch through
 ``System.track_stereo_window``; a tail shorter than a window is tracked
-frame by frame.
+frame by frame.  ``--viewer PORT`` serves the live viewer
+(``viz/live_viewer.py``) at http://localhost:PORT/ while the system
+tracks.
 """
 
 import argparse
@@ -40,12 +42,15 @@ def main(argv=None):
                          "(System.track_stereo_async)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of every step (default: cuda)")
+    ap.add_argument("--viewer", type=int, default=0, metavar="PORT",
+                    help="serve the live map/frame viewer on this port "
+                         "(the reference Viewer thread, Viewer.py:40)")
     args = ap.parse_args(argv)
 
     import torch
 
     from pyorbslam_tpu_torch.config import SlamConfig
-    from pyorbslam_tpu_torch.io.kitti import iter_stereo, load_image_paths
+    from pyorbslam_tpu_torch.io.kitti import load_image_paths
     from pyorbslam_tpu_torch.slam.system import System
 
     device = torch.device(args.device)
@@ -71,6 +76,22 @@ def main(argv=None):
         n = min(n, args.maxFrames)
     print(f"tracking {n} frames from {args.pathToSequence} on {device}")
 
+    viewer = None
+    if args.viewer:
+        from pyorbslam_tpu_torch.viz.live_viewer import LiveViewer
+
+        viewer = LiveViewer(system, port=args.viewer).start()
+        print(f"live viewer: http://localhost:{viewer.port}/")
+    try:
+        _track(system, args, n, viewer)
+    finally:
+        if viewer is not None:
+            viewer.stop()
+
+
+def _track(system, args, n: int, viewer) -> None:
+    from pyorbslam_tpu_torch.io.kitti import iter_stereo
+
     t_start = time.time()
     if args.window:
         buf = []
@@ -91,6 +112,8 @@ def main(argv=None):
         for i, (left, right, ts) in enumerate(iter_stereo(args.pathToSequence)):
             if i >= n:
                 break
+            if viewer is not None:
+                system._viewer_image = left
             track(left, right, ts)
             if (i + 1) % 50 == 0:
                 st = system.stats[-1] if system.stats else {}

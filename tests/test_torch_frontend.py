@@ -466,6 +466,23 @@ class TestOrientation:
         d = np.abs((got - ref + 180.0) % 360.0 - 180.0)
         assert d.max() < 0.5 and np.median(d) < 0.01
 
+    def test_ic_angle_patch_form(self):
+        """``ic_angle``, the reference's per-keypoint patch form
+        (``tests/test_frontend.py``, ``tests/test_moment_maps.py``), on the
+        same unblurred padded level and keypoints: the moments are sums of
+        integers below 2^24, exact in float32 in any order, so the angles
+        agree to the last rounding of atan2."""
+        img = jsyn.make_texture(512, seed=9)[:240, :320].astype(np.float32)
+        rng = np.random.default_rng(0)
+        xy = np.stack([rng.integers(20, 300, 200), rng.integers(20, 220, 200)],
+                      1).astype(np.int32)
+        want = np.asarray(jdesc.ic_angle(jpyr.reflect_pad(jnp.asarray(img), 19),
+                                         jnp.asarray(xy)))
+        got = N(tdesc.ic_angle(tpyr.reflect_pad(T(img), 19), T(xy)))
+        assert got.shape == want.shape == (200,)
+        d = np.abs((got - want + 180.0) % 360.0 - 180.0)
+        assert d.max() < 1e-3, d.max()
+
     def test_moment_maps(self):
         """Moment maps to 8 units (the float32 rounding of cumulative sums
         near 5e6 is 0.25-0.5 per add); angles read from them agree within

@@ -351,11 +351,14 @@ def test_imports_without_jax():
         "        'native.mapcore_ffi', 'optim.epnp', 'io.kitti', 'stereo_kitti',\n"
         "        'utils.host_read', 'geometry.sim3', 'optim.horn', 'optim.sim3_opt',\n"
         "        'optim.pose_graph', 'optim.ba_cg', 'slam.loop_closing',\n"
-        "        'tools.dispatch_timing', 'utils.checkpoint']\n"
+        "        'tools.dispatch_timing', 'utils.checkpoint', 'parallel.dist_ba',\n"
+        "        'parallel.dist_pose_graph', 'parallel.multihost', 'viz.live_viewer',\n"
+        "        'viz.drawer', 'io.render_torch', 'tools.multihost_dryrun']\n"
         "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"
         "               for n in sys.modules), 'JAX package imported'\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

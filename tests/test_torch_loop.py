@@ -40,7 +40,10 @@ from pyorbslam_tpu_torch.optim import ba_cg as tba_cg
 from pyorbslam_tpu_torch.optim import horn as thorn
 from pyorbslam_tpu_torch.optim import pose_graph as tpg
 from pyorbslam_tpu_torch.optim import sim3_opt as tsim3_opt
+from pyorbslam_tpu_torch.parallel import dist_ba as tdist
 from pyorbslam_tpu_torch.slam import loop_closing as tloop
+from pyorbslam_tpu_torch.tools.gba_tiling import centres as centers
+from pyorbslam_tpu_torch.tools.multihost_dryrun import drift_graph
 
 # The whole test run has six workers on eight cores: with torch's default of
 # one thread per core the workers contend, and the port's files run many
@@ -115,6 +118,21 @@ class TestSim3Group:
         np.testing.assert_allclose(N(tsim3.act(ta, T(pts[:, 0]))),
                                    np.asarray(jsim3.act(ja, jnp.asarray(pts[:, 0]))),
                                    rtol=1e-5, atol=1e-5)
+
+    def test_identity_and_from_se3(self, xis):
+        """``Sim3.identity`` and ``Sim3.from_se3`` equal the JAX package's
+        (``tests/test_geometry.py`` lifts SE3 poses with ``from_se3``)."""
+        for batch in ((), (4,), (2, 3)):
+            for w, g in zip(jsim3.Sim3.identity(batch), tsim3.Sim3.identity(batch)):
+                assert tuple(g.shape) == w.shape
+                np.testing.assert_array_equal(N(g), np.asarray(w))
+        xi = xis[20:30].copy()
+        xi[:, 6] = 0.0                  # unit scale: SE3 poses
+        Tm = N(tsim3.to_matrix(tsim3.exp(T(xi))))
+        want = jsim3.Sim3.from_se3(jnp.asarray(Tm))
+        got = tsim3.Sim3.from_se3(T(Tm))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(N(g), np.asarray(w))
 
     def test_jacobian_matches_jacfwd(self, xis):
         """The forward-mode Jacobian of the retraction's log against
@@ -327,51 +345,6 @@ class TestSim3MutualMatch:
 # ------------------------------------------------------------- pose graph
 
 
-def drift_graph(seed, C, radius, rot_sd, trans_sd):
-    """A circle of keyframes, drifted odometry edges and one loop edge to
-    the start measured from the truth (``tests/test_sim3.py``)."""
-    rng = np.random.default_rng(seed)
-    gt = []
-    for i in range(C):
-        ang = 2 * np.pi * i / C
-        Twc = np.eye(4, dtype=np.float32)
-        Twc[:3, :3] = np.asarray(jse3.exp_so3(jnp.asarray(np.array([0, ang, 0], np.float32))))
-        Twc[:3, 3] = [radius * np.sin(ang), 0, radius * (1 - np.cos(ang))]
-        gt.append(np.linalg.inv(Twc).astype(np.float32))
-    est = [gt[0]]
-    for i in range(1, C):
-        rel = gt[i] @ np.linalg.inv(gt[i - 1])
-        xi = np.concatenate([rng.normal(0, rot_sd, 3),
-                             rng.normal(0, trans_sd, 3)]).astype(np.float32)
-        est.append((np.asarray(jse3.exp_se3(jnp.asarray(xi))) @ rel
-                    @ est[-1]).astype(np.float32))
-    gt, est = np.stack(gt), np.stack(est)
-    e_i, e_j, mR, mt = [], [], [], []
-    for i in range(C - 1):
-        Sji = est[i + 1] @ np.linalg.inv(est[i])
-        e_i.append(i)
-        e_j.append(i + 1)
-        mR.append(Sji[:3, :3])
-        mt.append(Sji[:3, 3])
-    loop = gt[0] @ np.linalg.inv(gt[C - 1])
-    e_i.append(C - 1)
-    e_j.append(0)
-    mR.append(loop[:3, :3])
-    mt.append(loop[:3, 3])
-    fixed = np.zeros(C, bool)
-    fixed[0] = True
-    E = len(e_i)
-    args = [est[:, :3, :3].copy(), est[:, :3, 3].copy(), np.ones(C, np.float32),
-            fixed, np.array(e_i, np.int32), np.array(e_j, np.int32),
-            np.stack(mR).astype(np.float32), np.stack(mt).astype(np.float32),
-            np.ones(E, np.float32), np.ones(E, bool)]
-    return gt, est, args
-
-
-def centers(Rm, tm):
-    return -np.einsum("cij,cj->ci", np.transpose(Rm, (0, 2, 1)), tm)
-
-
 class TestPoseGraph:
     def test_dense_matches_jax(self):
         """Poses within 1e-4 of the JAX package's dense solver, and the
@@ -546,6 +519,7 @@ def closing(data_cache_dir):
             before = dict(
                 port=convert.system_from_numpy(jsys, tc, CPU),
                 port_gba=convert.system_from_numpy(jsys, tc, CPU),
+                port_sharded=convert.system_from_numpy(jsys, tc, CPU),
                 jax_gba=jax_map_copy(jsys.map))
             log = {}
             for name in ("detect", "compute_sim3", "_search_and_fuse"):
@@ -662,6 +636,29 @@ class TestWholeCloser:
         assert closing["port"].map.loop_edges == (
             {closing["kf"]: {loop_kf}, loop_kf: {closing["kf"]}}
             if closing["port_accepted"] else {})
+
+    def test_correct_sharded_essential_graph(self, closing):
+        """``correct`` with its essential graph sharded over 4 CPU shards
+        (``parallel/dist_pose_graph.py``; the branch the port takes above
+        the CG threshold where several CUDA devices are visible) from the
+        same state and Sim3: the same accept decision, and keyframe poses
+        within 0.5 deg and 2 cm of the port's one-device correction (its
+        dense solver here; ``tests/test_sim3.py``'s dense-against-CG
+        tolerance)."""
+        sysm = closing["port_sharded"]
+        lc = sysm.loop_closer
+        lc._pose_graph_mesh = lambda big: tdist.device_mesh(CPU, 4)
+        loop_kf, Scw, match_map = closing["log"]["compute_sim3"][0]
+        closed0 = lc.n_loops_closed
+        lc.correct(closing["kf"], loop_kf, Scw, dict(match_map))
+        assert (lc.n_loops_closed == closed0 + 1) == closing["port_accepted"]
+        n = closing["jax_Tcw"].shape[0]
+        got = sysm.map.keyframes.Tcw[:n]
+        want = closing["port"].map.keyframes.Tcw[:n]
+        assert rot_deg(got[:, :3, :3], want[:, :3, :3]).max() < 0.5
+        c_got = centers(got[:, :3, :3], got[:, :3, 3])
+        c_want = centers(want[:, :3, :3], want[:, :3, 3])
+        assert np.linalg.norm(c_got - c_want, axis=1).max() < 0.02
 
     def test_global_ba_dense(self, closing):
         """``SlamMap.global_ba`` (its dense rung at this map size) on the

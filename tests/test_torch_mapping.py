@@ -31,6 +31,7 @@ from pyorbslam_tpu_torch import convert
 from pyorbslam_tpu_torch.native import mapcore_ffi as tffi
 from pyorbslam_tpu_torch.ops import triangulation as ttri
 from pyorbslam_tpu_torch.optim import ba as tba
+from pyorbslam_tpu_torch.parallel import dist_ba
 from pyorbslam_tpu_torch.slam import local_mapping as tlm
 from pyorbslam_tpu_torch.slam import system as tsystem
 from pyorbslam_tpu_torch.slam.kf_ring import DeviceKFRing
@@ -231,6 +232,19 @@ def test_mapcore_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(tffi, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tffi.build()
+
+
+def test_mapcore_available(monkeypatch, tmp_path):
+    """``available()`` as the JAX package's: True where the core builds
+    and loads (both packages here), False where its build fails."""
+    assert tffi.available() is True
+    assert tffi.available() == jnative.mapcore_ffi.available()
+    bad = tmp_path / "mapcore.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(tffi, "_lib", None)
+    monkeypatch.setattr(tffi, "SOURCE", str(bad))
+    monkeypatch.setattr(tffi, "BUILD_DIR", str(tmp_path / "build"))
+    assert tffi.available() is False
 
 
 # ------------------------------------------- keyframe policy and culling
@@ -533,23 +547,23 @@ class TestSlamMap:
     @pytest.mark.parametrize("call", ["global_ba", "cg", "dist"])
     def test_other_engines_raise(self, jax_run, port_map, call):
         """The engines beside local BA: ``global_ba`` (its dense rung at
-        this map size) and ``_run_ba(engine="cg")`` against the JAX
-        package on the same map, keyframe poses within ``BA_POS_TOL``,
-        erased observations within 2; only the multi-device ``dist``
-        engine still raises, naming its ROADMAP item."""
-        if call == "dist":
-            with pytest.raises(NotImplementedError, match="item 21"):
-                port_map._run_ba([0, 1], 2, np.arange(20), 5, 10, True,
-                                 engine="dist")
-            return
+        this map size), ``_run_ba(engine="cg")`` and the multi-device
+        ``_run_ba(engine="dist")`` (the JAX package's 8-device CPU mesh,
+        the port's 8 CPU shards) against the JAX package on the same map,
+        keyframe poses within ``BA_POS_TOL``, erased observations within 2
+        (the dist rung erases none in either package).  None of them
+        raises any more; the name is the one the test has carried since
+        the dist engine was a stub."""
         jm = jax_map_copy(jax_run[0])
         if call == "global_ba":
             want, got = jm.global_ba(), port_map.global_ba()
         else:
             cams = list(range(jm.keyframes.n))
             pnt = jm.core.observed_landmarks(jm.landmarks.n)
-            want = jm._run_ba(cams, len(cams), pnt, 3, 3, True, engine="cg")
-            got = port_map._run_ba(cams, len(cams), pnt, 3, 3, True, engine="cg")
+            mesh = dist_ba.device_mesh(CPU, 8) if call == "dist" else None
+            want = jm._run_ba(cams, len(cams), pnt, 3, 3, True, engine=call)
+            got = port_map._run_ba(cams, len(cams), pnt, 3, 3, True,
+                                   engine=call, mesh=mesh)
         assert want["ran"] and got["ran"]
         for key in ("n_cams", "n_free", "n_points", "n_obs"):
             assert got[key] == want[key]
