@@ -145,8 +145,32 @@
     under 2% of pixels off by more than 2); ms a frame beside the host's
     numpy time.
 
-The two loop sequences, phase 10b's sequence and phase 14's numpy
-renders are made in worker processes while phases 2-7 run on the card.
+15. The at-scale loop, the main path over hundreds of keyframes:
+    ``SyntheticStream(n_frames=420, 1241x376, trajectory="loop",
+    scene="interior", loop_radius=33, laps=2.3, render_backend="torch")``
+    (the JAX package's ``EVAL_SCALE_R5_23`` world, 700 frames at radius 55,
+    cut to 420 frames at radius 33: the same 2.3 laps and ~1.13 m a frame;
+    320 frames at radius 25 give fewer keyframes than global BA's cg rung
+    needs),
+    2000 features, the default ``System(cfg, device)``; every frame rendered
+    on the card before the run, then ``track_stereo_async`` on every frame,
+    ``flush_async``, ``shutdown``.  Every pose finite, the final state
+    ``OK``, nothing in flight, fast_score and brief_canvas once a frame,
+    at least 97 live keyframes, the loop machinery engaged (closed plus
+    rejected at least 1), the corrected trajectory's ATE under 1% of the
+    path, 0 synchronizing calls in the 10 dispatches from frame 250 and in
+    the keyframe stages queued in them (phase 7's watch); then one
+    ``SlamMap.global_ba()`` on the final map over more than 96 cameras (the
+    ``cg`` rung), which must run, not be rejected and not raise the chi2
+    of the observations it optimizes (the stereo ones: bundle adjustment
+    takes no monocular observation); the map's whole reprojection chi2,
+    monocular observations included, is printed beside it.  Prints frames/s over the first and the last 100
+    frames, keyframes, landmarks, loops, the loop stage's totals, peak
+    device memory after frames 100, 200, 320 and 420, and the host's RSS.
+
+The two loop sequences, phase 10b's sequence, phase 14's numpy renders
+and phase 15's world (its 4096-px texture) are made in worker processes
+while phases 2-7 run on the card.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -163,6 +187,7 @@ import datetime
 import multiprocessing
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -190,9 +215,10 @@ from pyorbslam_tpu_torch.optim import ba, ba_cg
 from pyorbslam_tpu_torch.optim.pose_graph import optimize_pose_graph_cg
 from pyorbslam_tpu_torch.parallel import dist_ba, multihost
 from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
+from pyorbslam_tpu_torch.slam.slam_map import GBA_DENSE_MAX_KFS
 from pyorbslam_tpu_torch.slam.system import System
 from pyorbslam_tpu_torch.slam.tracking import Tracker, fused_track_chain_step
-from pyorbslam_tpu_torch.tools import gba_tiling
+from pyorbslam_tpu_torch.tools import eval_scale, gba_tiling
 from pyorbslam_tpu_torch.tools import multihost_dryrun as dryrun
 from pyorbslam_tpu_torch.tools.timing import time_graph_ms, time_ms, time_stream_ms
 from pyorbslam_tpu_torch.utils import checkpoint
@@ -221,6 +247,16 @@ SHARD_T_TOL = 2e-3        # tests/test_dist_ba.py: sharded against one device, m
 # scene's frames the renderer draws
 N_VIEWER_FRAMES = 12
 RENDER_FRAMES = (0, 32, 64)
+# phase 15: the JAX package's EVAL_SCALE_R5_23 world (700 frames, radius
+# 55, 2.3 laps) cut to 420 frames at radius 33, which keeps its laps and
+# its ~1.13 m a frame; the sync watch's first frame and length; the
+# frames after which peak device memory is read
+SCALE_SEQ = dict(n_frames=420, trajectory="loop", scene="interior",
+                 loop_radius=33.0, laps=2.3)
+SCALE_WATCH = (250, 10)
+SCALE_MEM_AT = (100, 200, 320)
+SCALE_MIN_KFS = GBA_DENSE_MAX_KFS + 1   # global BA then takes its cg rung
+SCALE_MAX_DRIFT = 0.01      # the odometry class: EVAL_SCALE_R5.json's loop-off run, 0.86%
 WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
@@ -297,9 +333,9 @@ def loop_scene_reference() -> dict:
 
 def start_renders(pool):
     """Render the two loop sequences, phase 10b's sequence and phase 14's
-    reference in worker processes while the card runs phases 2-7:
-    (full-width loop, tier-1 loop, window_feed sequence, loop scene
-    reference) futures."""
+    reference, and build phase 15's world, in worker processes while the
+    card runs phases 2-7: (full-width loop, tier-1 loop, window_feed
+    sequence, loop scene reference, scale stream) futures."""
     full = pool.submit(generate_sequence, n_frames=N_LOOP_FRAMES, width=WIDTH,
                        height=HEIGHT, **LOOP_SEQ)
     small = pool.submit(generate_sequence, n_frames=TIER1_LOOP["n_frames"],
@@ -307,7 +343,9 @@ def start_renders(pool):
                         **LOOP_SEQ)
     feed = pool.submit(generate_sequence, n_frames=N_FRAMES, width=WIDTH,
                        height=HEIGHT, **FEED_SEQ)
-    return full, small, feed, pool.submit(loop_scene_reference)
+    scale = pool.submit(synthetic.SyntheticStream, width=WIDTH, height=HEIGHT,
+                        render_backend="torch", **SCALE_SEQ)
+    return full, small, feed, pool.submit(loop_scene_reference), scale
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -1419,6 +1457,125 @@ def run_renderer(ref, device, smi: str) -> None:
         f"beside the card's phases")
 
 
+def host_rss_mb() -> tuple:
+    """The host process's resident set now and at its peak, in MiB."""
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f if line.startswith("VmRSS"))
+    return now / 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def huber_chi2(smap) -> tuple:
+    """Mean Huberized reprojection chi2 of the map's live observations
+    (``SlamMap.reprojection_chi2``'s terms), over the stereo ones (those
+    bundle adjustment optimizes: ``mapcore_assemble_obs`` skips every
+    observation without a right-image match) and over the monocular
+    ones."""
+    ks, lm = smap.keyframes, smap.landmarks
+    obs = ks.obs_lm[: ks.n]
+    ki, fi = np.nonzero((obs >= 0) & ks.alive[: ks.n, None]
+                        & lm.alive[np.maximum(obs, 0)])
+    chi2, depth = smap.observation_chi2(ki, fi, obs[ki, fi])
+    d = ba.HUBER_DELTA
+    rho = np.where(chi2 <= d * d, chi2, 2.0 * d * np.sqrt(chi2) - d * d)
+    rho = np.where(depth <= 0, 2.0 * d * 50.0, rho)
+    stereo = ks.u_right[ki, fi] > 0
+    return float(rho[stereo].mean()), float(rho[~stereo].mean())
+
+
+def run_scale(stream, device) -> dict:
+    """Phase 15: the at-scale loop through the pipelined schedule, loop
+    closing on; then one explicit global BA on the final map."""
+    n = stream.n_frames
+    which = f"scale loop {WIDTH}x{HEIGHT} x {n} frames, pipelined"
+    t0 = time.perf_counter()
+    frames = [stream.frame(i) for i in range(n)]
+    del stream._torch_renderer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{which}: rendered on the card in {time.perf_counter() - t0:.2f} s")
+    system = System(eval_scale.scale_config(stream, WIDTH, HEIGHT, N_FEATURES), device)
+    w0, w_len = SCALE_WATCH
+    syncs, peaks, stamps = None, {}, []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    watching = False
+    for i, (left, right) in enumerate(frames):
+        if i == w0:
+            syncs, watching = watch_dispatch_syncs(system), True
+        system.track_stereo_async(left, right, stream.timestamps[i])
+        if watching and len(syncs["chain"]) == w_len:
+            del system._dispatch_chain, system._run_maintenance_queue
+            watching = False
+        stamps.append(time.perf_counter())
+        if i + 1 in SCALE_MEM_AT:
+            peaks[i + 1] = torch.cuda.max_memory_allocated() / 2**20
+    system.flush_async()
+    system.shutdown()
+    stamps[-1] = time.perf_counter()
+    peaks[n] = torch.cuda.max_memory_allocated() / 2**20
+    counts = kernels.launch_counts()
+    first, last = eval_scale.span_rates(stamps, t0)
+    ks, lm, lc = system.map.keyframes, system.map.landmarks, system.loop_closer
+    alive = int(ks.alive[: ks.n].sum())
+    poses = system.corrected_trajectory()
+    gt = stream.poses_wc[:n]
+    length = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
+    ate = ate_rmse(np.linalg.inv(poses.astype(np.float64)), gt)
+    rss, rss_peak = host_rss_mb()
+    log(f"{which}: {stamps[-1] - t0:.2f} s, frames/s {first:.3f} over the first "
+        f"100 frames and {last:.3f} over the last 100; keyframes {alive} alive of "
+        f"{ks.n}, landmarks {int(lm.alive.sum())} alive of {lm.n}; loops closed "
+        f"{lc.n_loops_closed}, rejected {lc.n_loops_rejected}, fused "
+        f"{lc.n_loops_fused}; ATE corrected {ate:.4f} m over {length:.2f} m "
+        f"({100 * ate / length:.3f}%), state {system.state}, launches {counts}")
+    log(f"  kf.loop {system.times['kf.loop']:.2f} s over "
+        f"{system.time_counts['kf.loop']} calls, loop.correct "
+        f"{lc.times['loop.correct']:.2f} s, kf.gba_slice "
+        f"{system.times['kf.gba_slice']:.2f} s over "
+        f"{system.time_counts['kf.gba_slice']} calls")
+    for label, t in sorted(lc.times.items()):
+        log(f"    {label}: {t:.3f} s in all")
+    log(f"  peak device memory (MiB) after frames {peaks}; host RSS {rss:.0f} "
+        f"MiB, peak {rss_peak:.0f} MiB")
+    ladder = [e for e in lc.events if isinstance(e, tuple)]
+    log(f"  Sim3 ladder events (kf, candidate, stage, count), last 20: {ladder[-20:]}")
+    log(f"  accept checks: {[e for e in lc.events if isinstance(e, str)][-10:]}")
+    require(len(system.trajectory) == n and bool(np.isfinite(poses).all()),
+            f"{which}: {len(system.trajectory)} poses, or a pose not finite")
+    require(system.state == "OK", f"{which}: final state {system.state}")
+    require(not system._async_q and not system._maint_pipe
+            and not system._maint_queue, f"{which}: work left in flight")
+    for name in ATLAS_KERNELS:
+        require(counts[name] == n, f"{which}: {name} launched {counts[name]} "
+                                   f"times over {n} frames")
+    require(alive >= SCALE_MIN_KFS, f"{which}: {alive} live keyframes")
+    require(lc.n_loops_closed + lc.n_loops_rejected >= 1,
+            f"{which}: the loop machinery never engaged")
+    require(ate < SCALE_MAX_DRIFT * length,
+            f"{which}: ATE {ate:.4f} m over {length:.2f} m")
+    report_dispatch_syncs(f"{which}, from frame {w0}", syncs)
+    require(not watching, f"{which}: {len(syncs['chain'])} watched dispatches")
+
+    before = (system.map.reprojection_chi2(),) + huber_chi2(system.map)
+    t0 = time.perf_counter()
+    info = system.map.global_ba()
+    torch.cuda.synchronize()
+    t_gba = time.perf_counter() - t0
+    after = (system.map.reprojection_chi2(),) + huber_chi2(system.map)
+    log(f"  global BA of the final map: {t_gba:.2f} s, {info}; reprojection chi2 "
+        f"(all, stereo, monocular) {tuple(round(x, 4) for x in before)} -> "
+        f"{tuple(round(x, 4) for x in after)}")
+    require(info.get("ran") and not info.get("rejected"),
+            f"{which}: global BA {info}")
+    require(info["n_cams"] > GBA_DENSE_MAX_KFS,
+            f"{which}: global BA over {info['n_cams']} cameras")
+    require(after[1] <= before[1],
+            f"{which}: global BA raised its observations' chi2 {before[1]} -> "
+            f"{after[1]}")
+    return dict(counts=counts, first=first, last=last, ate=ate)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1523,6 +1680,7 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
     run_sharded(tiled, tier1["system"], device, smi)
     run_viewer(seq, cfg, device)
     run_renderer(renders[3].result(), device, smi)
+    scale = run_scale(renders[4].result(), device)
 
     # launches: each kernel's count from the System run of its own path;
     # the main path is the pipelined schedule
@@ -1530,6 +1688,7 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
     launches["brief_level"] = per_level["counts"]["brief_level"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        rec["launches_scale"] = scale["counts"][rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} never launched on its path")
     print(json.dumps({"kernels": records}))
     print(smi)

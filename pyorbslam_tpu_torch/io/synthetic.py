@@ -21,6 +21,7 @@ z-forward; the world frame equals the first left-camera frame; poses are
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 from typing import List, Optional
@@ -40,7 +41,15 @@ def _bilinear_noise(rng, octave: int, size: int) -> np.ndarray:
 
 
 def make_texture(size: int = 1024, seed: int = 0) -> np.ndarray:
-    """Procedural corner-rich APERIODIC texture in [0, 255] float32.
+    """Procedural corner-rich APERIODIC texture in [0, 255] float32 (a
+    fresh copy of the process's memo: a 4096-px texture takes ~25 s to
+    draw on a CPU core)."""
+    return _texture(size, seed).copy()
+
+
+@functools.lru_cache(maxsize=2)
+def _texture(size: int, seed: int) -> np.ndarray:
+    """The texture of :func:`make_texture`.
 
     Scattered hard-edged ellipse blobs with random position, size, aspect,
     orientation and intensity over smooth value noise.  An earlier version

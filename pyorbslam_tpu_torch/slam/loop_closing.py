@@ -528,6 +528,10 @@ class LoopCloser:
             Tcorr[:3, 3] = t / s
             ks.Tcw[ki] = Tcorr
 
+        # the bindings before the merges below: a rolled-back correction
+        # keeps only the merged bindings its restored geometry agrees with
+        bound_before = lm.resolve(ks.obs_lm[: ks.n])
+
         # replace current-KF landmarks by their matched loop landmarks
         for feat, loop_lm in match_map.items():
             cur_lm = int(ks.obs_lm[kf, feat])
@@ -719,11 +723,22 @@ class LoopCloser:
             lm.pos[: lm.n] = corr_pos
             accepted = True
         else:
-            # geometry stays at the snapshot; merged topology remains
-            # (BA's chi2 gating erases any merge the old geometry
-            # disagrees with)
+            # geometry stays at the snapshot, and so do the merged
+            # bindings it agrees with.  Those it rejects are erased here
+            # (ROADMAP.md queue 3, F6): they are coherent (a whole wrongly
+            # fused region), local BA refuses to move a camera meters to
+            # fit them and so never gates them out, and a later global BA,
+            # which erases nothing, bends the map around them
             accepted = False
             self.n_loops_rejected += 1
+            bound = lm.resolve(ks.obs_lm[: ks.n])
+            ki, fi = np.nonzero((bound >= 0) & (bound != bound_before)
+                                & ks.alive[: ks.n, None])
+            ids = bound[ki, fi]
+            live = lm.alive[ids]
+            n_erased = m.erase_disagreeing(ki[live], fi[live], ids[live])
+            self.events.append(f"loop:rolled_back_bindings erased={n_erased} "
+                               f"of {int(live.sum())}")
             # a heavily fused rejection still closes the loop functionally
             if n_fused >= 40:
                 self.n_loops_fused += 1

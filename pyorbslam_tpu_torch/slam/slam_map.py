@@ -282,6 +282,27 @@ class SlamMap:
 
     # ------------- local bundle adjustment -------------
 
+    def observation_chi2(self, ki: np.ndarray, fi: np.ndarray,
+                         ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Stereo-reprojection chi2 of the observations (keyframe ``ki``,
+        feature ``fi``) of landmarks ``ids`` under the map's geometry, and
+        each one's depth in its camera."""
+        ks, lm = self.keyframes, self.landmarks
+        P = lm.pos[ids]
+        T = ks.Tcw[ki]
+        Pc = np.einsum("mij,mj->mi", T[:, :3, :3], P) + T[:, :3, 3]
+        z = np.maximum(Pc[:, 2], 1e-6)
+        c = self.cfg.camera
+        u = c.fx * Pc[:, 0] / z + c.cx
+        v = c.fy * Pc[:, 1] / z + c.cy
+        du = u - ks.kp_xy[ki, fi, 0]
+        dv = v - ks.kp_xy[ki, fi, 1]
+        ur_obs = ks.u_right[ki, fi]
+        dur = np.where(ur_obs > 0, (u - c.bf / z) - ur_obs, 0.0)
+        inv_s2 = np.asarray(self.cfg.orb.inv_level_sigma2)[
+            ks.kp_octave[ki, fi]]
+        return (du * du + dv * dv + dur * dur) * inv_s2, Pc[:, 2]
+
     def reprojection_chi2(self, huber_delta: float = 2.7955) -> float:
         """Mean Huberized stereo-reprojection chi2 over every live
         observation: the map's own quality metric, used by the loop
@@ -300,29 +321,29 @@ class SlamMap:
         ki, fi = np.nonzero(mask)
         if len(ki) == 0:
             return 0.0
-        ids = obs[ki, fi]
-        P = lm.pos[ids]
-        T = ks.Tcw[ki]
-        Pc = np.einsum("mij,mj->mi", T[:, :3, :3], P) + T[:, :3, 3]
-        z = np.maximum(Pc[:, 2], 1e-6)
-        c = self.cfg.camera
-        u = c.fx * Pc[:, 0] / z + c.cx
-        v = c.fy * Pc[:, 1] / z + c.cy
-        du = u - ks.kp_xy[ki, fi, 0]
-        dv = v - ks.kp_xy[ki, fi, 1]
-        ur_obs = ks.u_right[ki, fi]
-        dur = np.where(ur_obs > 0, (u - c.bf / z) - ur_obs, 0.0)
-        inv_s2 = np.asarray(self.cfg.orb.inv_level_sigma2)[
-            ks.kp_octave[ki, fi]]
-        chi2 = (du * du + dv * dv + dur * dur) * inv_s2
+        chi2, depth = self.observation_chi2(ki, fi, obs[ki, fi])
         # Huber: quadratic below delta^2, linear above: one gross
         # outlier must not dominate the map-level mean
         d2 = huber_delta * huber_delta
         e = np.sqrt(np.maximum(chi2, 1e-12))
         rho = np.where(chi2 <= d2, chi2, 2.0 * huber_delta * e - d2)
         # behind-camera observations are maximally wrong
-        rho = np.where(Pc[:, 2] <= 0, 2.0 * huber_delta * 50.0, rho)
+        rho = np.where(depth <= 0, 2.0 * huber_delta * 50.0, rho)
         return float(rho.mean())
+
+    def erase_disagreeing(self, ki: np.ndarray, fi: np.ndarray,
+                          ids: np.ndarray) -> int:
+        """Erase the observations (keyframe ``ki``, feature ``fi``) of
+        landmarks ``ids`` that the map's geometry rejects by local BA's
+        own inlier rule (chi2 above the stereo gate, or behind the
+        camera); returns how many went."""
+        if len(ki) == 0:
+            return 0
+        chi2, depth = self.observation_chi2(ki, fi, ids)
+        bad = np.nonzero((chi2 > ba.CHI2_STEREO) | (depth <= 0))[0]
+        for o in bad:
+            self.core.erase_observation(int(ids[o]), int(ki[o]))
+        return len(bad)
 
     def local_ba(self, kf: int, split: bool = False) -> dict:
         """Assemble + run the Schur BA over the covisible neighborhood of

@@ -353,7 +353,8 @@ def test_imports_without_jax():
         "        'optim.pose_graph', 'optim.ba_cg', 'slam.loop_closing',\n"
         "        'tools.dispatch_timing', 'utils.checkpoint', 'parallel.dist_ba',\n"
         "        'parallel.dist_pose_graph', 'parallel.multihost', 'viz.live_viewer',\n"
-        "        'viz.drawer', 'io.render_torch', 'tools.multihost_dryrun']\n"
+        "        'viz.drawer', 'io.render_torch', 'tools.multihost_dryrun',\n"
+        "        'tools.eval_scale', 'tools.eval_synth']\n"
         "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"

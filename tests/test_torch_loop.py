@@ -12,6 +12,7 @@ JAX package's own index sets with ``jax`` and hands them to the port's
 ``sim3_ransac_sets``.  Tolerances are stated where they are used.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -41,7 +42,9 @@ from pyorbslam_tpu_torch.optim import horn as thorn
 from pyorbslam_tpu_torch.optim import pose_graph as tpg
 from pyorbslam_tpu_torch.optim import sim3_opt as tsim3_opt
 from pyorbslam_tpu_torch.parallel import dist_ba as tdist
+from pyorbslam_tpu_torch.optim import ba as tba
 from pyorbslam_tpu_torch.slam import loop_closing as tloop
+from pyorbslam_tpu_torch.slam import slam_map as tslam_map
 from pyorbslam_tpu_torch.tools.gba_tiling import centres as centers
 from pyorbslam_tpu_torch.tools.multihost_dryrun import drift_graph
 
@@ -420,6 +423,7 @@ class TestSim3FailCooldown(JaxCooldown):
 
 LOOP_SEQ = dict(n_frames=92, width=512, height=160, trajectory="loop",
                 seed=11, laps=1.15)   # tests/conftest.py::full_loop_run
+CG_THRESHOLD = 16
 
 
 def loop_cfgs(seq):
@@ -479,6 +483,27 @@ def solved_poses(res) -> np.ndarray:
     return T
 
 
+def bindings(m) -> np.ndarray:
+    """Every keyframe feature's landmark, replacements followed."""
+    return m.landmarks.resolve(m.keyframes.obs_lm[: m.keyframes.n])
+
+
+def merged_bindings(m, bound_before, cfg) -> tuple:
+    """The bindings of either package's map that a closing call made
+    (merged or added) and that it still holds, and how many of those the
+    map's geometry rejects by local BA's inlier rule."""
+    ks, lm = m.keyframes, m.landmarks
+    n = bound_before.shape[0]
+    bound = bindings(m)[:n]
+    ki, fi = np.nonzero((bound >= 0) & (bound != bound_before) & ks.alive[:n, None])
+    ids = bound[ki, fi]
+    live = lm.alive[ids]
+    ki, fi, ids = ki[live], fi[live], ids[live]
+    view = types.SimpleNamespace(keyframes=ks, landmarks=lm, cfg=cfg)
+    chi2, depth = tslam_map.SlamMap.observation_chi2(view, ki, fi, ids)
+    return len(ids), int(((chi2 > tba.CHI2_STEREO) | (depth <= 0)).sum())
+
+
 @pytest.fixture(scope="module")
 def closing(data_cache_dir):
     """The JAX ``System`` over the cached loop sequence until its loop
@@ -497,6 +522,10 @@ def closing(data_cache_dir):
 
     seq = generate_sequence(cache_dir=data_cache_dir, **LOOP_SEQ)
     jc, tc = loop_cfgs(seq)
+    # the same configuration with the essential graph's CG branch taken at
+    # this map size (tests/test_scale.py's threshold)
+    tc_cg = dataclasses.replace(tc, ba=dataclasses.replace(
+        tc.ba, pose_graph_cg_threshold=CG_THRESHOLD))
     jsys = jsystem.System(jc, landmark_capacity=1 << 16, keyframe_capacity=128)
     rec = {}
 
@@ -520,6 +549,7 @@ def closing(data_cache_dir):
                 port=convert.system_from_numpy(jsys, tc, CPU),
                 port_gba=convert.system_from_numpy(jsys, tc, CPU),
                 port_sharded=convert.system_from_numpy(jsys, tc, CPU),
+                port_cg=convert.system_from_numpy(jsys, tc_cg, CPU),
                 jax_gba=jax_map_copy(jsys.map))
             log = {}
             for name in ("detect", "compute_sim3", "_search_and_fuse"):
@@ -527,6 +557,7 @@ def closing(data_cache_dir):
             recorder(jsys.map, "reprojection_chi2", log)
             real_pg = recorder(jloop, "optimize_pose_graph", log)
             n_closed = lc.n_loops_closed
+            bound_before = bindings(jsys.map)
             try:
                 closed = real_on(kf, bow)
             finally:
@@ -538,7 +569,8 @@ def closing(data_cache_dir):
                 ks = jsys.map.keyframes
                 rec.update(before, kf=kf, bow=dict(bow), log=log,
                            jax_Tcw=ks.Tcw[: ks.n].copy(),
-                           jax_accepted=lc.n_loops_closed == n_closed + 1)
+                           jax_accepted=lc.n_loops_closed == n_closed + 1,
+                           jax_merged=merged_bindings(jsys.map, bound_before, tc))
             return closed
 
         lc.on_keyframe = on_keyframe
@@ -567,10 +599,12 @@ def closing(data_cache_dir):
     real_pg = recorder(tloop, "optimize_pose_graph", plog)
     loop_kf, Scw, match_map = rec["log"]["compute_sim3"][0]
     closed0 = plc.n_loops_closed
+    bound_before = bindings(port.map)
     try:
         plc.correct(kf, loop_kf, Scw, dict(match_map))
     finally:
         tloop.optimize_pose_graph = real_pg
+    rec["port_merged"] = merged_bindings(port.map, bound_before, tc)
     del port.map.reprojection_chi2
     rec["plog"] = plog
     rec["port_accepted"] = plc.n_loops_closed == closed0 + 1
@@ -659,6 +693,56 @@ class TestWholeCloser:
         c_got = centers(got[:, :3, :3], got[:, :3, 3])
         c_want = centers(want[:, :3, :3], want[:, :3, 3])
         assert np.linalg.norm(c_got - c_want, axis=1).max() < 0.02
+
+    def test_correct_cg_essential_graph(self, closing):
+        """``correct`` with the essential graph above its CG threshold
+        (``optimize_pose_graph_cg``, the branch the default configuration
+        takes above 384 keyframes) from the same state and Sim3: the same
+        accept decision as the dense correction, and keyframe poses within
+        0.5 deg and 2 cm of it (the sharded case's tolerance)."""
+        sysm = closing["port_cg"]
+        lc = sysm.loop_closer
+        n = closing["jax_Tcw"].shape[0]
+        assert n > sysm.cfg.ba.pose_graph_cg_threshold == CG_THRESHOLD
+        log = {}
+        real_cg = recorder(tloop, "optimize_pose_graph_cg", log)
+        real_dense = recorder(tloop, "optimize_pose_graph", log)
+        loop_kf, Scw, match_map = closing["log"]["compute_sim3"][0]
+        closed0 = lc.n_loops_closed
+        try:
+            lc.correct(closing["kf"], loop_kf, Scw, dict(match_map))
+        finally:
+            tloop.optimize_pose_graph_cg = real_cg
+            tloop.optimize_pose_graph = real_dense
+        assert len(log.get("optimize_pose_graph_cg", ())) == 1
+        assert "optimize_pose_graph" not in log
+        assert (lc.n_loops_closed == closed0 + 1) == closing["port_accepted"]
+        got = solved_poses(log["optimize_pose_graph_cg"][0])[:n]
+        want = solved_poses(closing["plog"]["optimize_pose_graph"][0])[:n]
+        for g, w in ((got, want),
+                     (sysm.map.keyframes.Tcw[:n], closing["port"].map.keyframes.Tcw[:n])):
+            assert rot_deg(g[:, :3, :3], w[:, :3, :3]).max() < 0.5
+            c_got = centers(g[:, :3, :3], g[:, :3, 3])
+            c_want = centers(w[:, :3, :3], w[:, :3, 3])
+            assert np.linalg.norm(c_got - c_want, axis=1).max() < 0.02
+
+    def test_rolled_back_bindings(self, closing):
+        """ROADMAP.md queue 3, F6: the closing call is rolled back in both
+        packages (on the recounted state, see ``closing``).  The JAX
+        package keeps every binding the call merged, and its restored
+        geometry rejects some of them (chi2 above the stereo gate); the
+        port erases those, so every merged binding it keeps agrees with
+        the geometry, and it keeps as many as the JAX package keeps
+        agreeing ones (within 10%)."""
+        (jax_held, jax_bad), (port_held, port_bad) = (
+            closing["jax_merged"], closing["port_merged"])
+        assert not closing["jax_accepted"] and not closing["port_accepted"]
+        assert jax_bad > 0 and port_bad == 0
+        erased = [e for e in closing["port"].loop_closer.events
+                  if isinstance(e, str) and e.startswith("loop:rolled_back_bindings")]
+        assert len(erased) == 1
+        good = jax_held - jax_bad
+        assert abs(port_held - good) <= 0.1 * good, (port_held, jax_held, jax_bad)
 
     def test_global_ba_dense(self, closing):
         """``SlamMap.global_ba`` (its dense rung at this map size) on the
