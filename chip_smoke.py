@@ -168,9 +168,29 @@
     frames, keyframes, landmarks, loops, the loop stage's totals, peak
     device memory after frames 100, 200, 320 and 420, and the host's RSS.
 
-The two loop sequences, phase 10b's sequence, phase 14's numpy renders
-and phase 15's world (its 4096-px texture) are made in worker processes
-while phases 2-7 run on the card.
+16. The bench, ``pyorbslam_tpu_torch/bench.py``, through ``run_config``
+    (the function its command line calls), every ``BENCH_CONFIG``: the
+    default (the pipelined schedule with the tracking program's
+    ``tracking_only_fps``) at bench.py's own 66 frames (34 for the
+    tracking program) and three timed passes, its ATE under phase 7's gate
+    (max(2 x phase 5's synchronous ATE, 0.15 m)) and no ``async:rescue``;
+    then the default in ``BENCH_MODE=stream`` and every other
+    configuration (per-frame, 8000-feature high density, windows of W = 8
+    in both windowed schedules, the tracking program at 2000 and 8000
+    features in both modes) at 16 frames and one timed pass.  Every run:
+    the bench's own check that every frame got a pose, finite poses,
+    nothing in flight, fast_score and brief_canvas launched exactly once
+    per frame built (``build_stereo_frame`` calls counted).  Prints every
+    bench line (one JSON object) and each run's seconds, frames built,
+    launches and peak device memory.  Then brief_canvas at the
+    high-density slot count (an 8000-feature frame) against its twin,
+    every word, at 1, 2, 4 and 8 warps a block, each with its three
+    clocks; the shipped block size is not changed.
+
+The two loop sequences, phase 10b's sequence, phase 14's numpy renders,
+phase 15's world (its 4096-px texture) and phase 16's 66- and 16-frame
+sequences (into the bench's cache) are made in worker processes while
+phases 2-7 run on the card.
 
 Any failed check raises, so the script exits non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -200,7 +220,7 @@ import warnings
 import numpy as np
 import torch
 
-from pyorbslam_tpu_torch import convert
+from pyorbslam_tpu_torch import bench, convert
 from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from pyorbslam_tpu_torch.io import synthetic
 from pyorbslam_tpu_torch.io.render_torch import TorchRenderer
@@ -214,6 +234,8 @@ from pyorbslam_tpu_torch.ops.extractor import level_keypoints
 from pyorbslam_tpu_torch.optim import ba, ba_cg
 from pyorbslam_tpu_torch.optim.pose_graph import optimize_pose_graph_cg
 from pyorbslam_tpu_torch.parallel import dist_ba, multihost
+from pyorbslam_tpu_torch.slam import system as system_mod
+from pyorbslam_tpu_torch.slam import tracking as tracking_mod
 from pyorbslam_tpu_torch.slam.frame import build_stereo_frame
 from pyorbslam_tpu_torch.slam.slam_map import GBA_DENSE_MAX_KFS
 from pyorbslam_tpu_torch.slam.system import System
@@ -257,6 +279,15 @@ SCALE_WATCH = (250, 10)
 SCALE_MEM_AT = (100, 200, 320)
 SCALE_MIN_KFS = GBA_DENSE_MAX_KFS + 1   # global BA then takes its cg rung
 SCALE_MAX_DRIFT = 0.01      # the odometry class: EVAL_SCALE_R5.json's loop-off run, 0.86%
+# phase 16: (BENCH_CONFIG, BENCH_MODE) of the bench's runs, the first at
+# bench.py's own lengths and passes, the others at BENCH_SHORT_FRAMES and
+# one timed pass
+BENCH_RUNS = (("", "scan"), ("", "stream"), ("perframe", "scan"),
+              ("pipeline", "scan"), ("highdensity_pipeline", "scan"),
+              ("pipeline_window", "scan"), ("pipeline_pipelined", "scan"),
+              ("tracking", "scan"), ("tracking", "stream"),
+              ("highdensity", "scan"), ("highdensity", "stream"))
+BENCH_SHORT_FRAMES = 16
 WIDTH, HEIGHT = 1241, 376
 N_FEATURES = 2000
 MAX_DRIFT = 0.025
@@ -307,10 +338,22 @@ def config_of(seq, n_features: int) -> SlamConfig:
     )
 
 
+def straight_sequence(n_frames: int):
+    """bench.py's straight sequence, kept in the bench's cache: phase 16
+    reads its 34-, 66- and 16-frame versions there."""
+    return generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
+                             trajectory="straight", speed=0.8, seed=3,
+                             cache_dir=bench.CACHE_DIR)
+
+
 def make_sequence(n_frames: int = N_FRAMES):
-    seq = generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
-                            trajectory="straight", speed=0.8, seed=3)
+    seq = straight_sequence(n_frames)
     return seq, config_of(seq, N_FEATURES)
+
+
+def render_bench_sequence(n_frames: int) -> None:
+    """A pool job: the sequence into the cache, nothing sent back."""
+    straight_sequence(n_frames)
 
 
 def loop_scene_reference() -> dict:
@@ -333,9 +376,10 @@ def loop_scene_reference() -> dict:
 
 def start_renders(pool):
     """Render the two loop sequences, phase 10b's sequence and phase 14's
-    reference, and build phase 15's world, in worker processes while the
-    card runs phases 2-7: (full-width loop, tier-1 loop, window_feed
-    sequence, loop scene reference, scale stream) futures."""
+    reference, build phase 15's world and render phase 16's sequences into
+    the bench's cache, in worker processes while the card runs phases 2-7:
+    (full-width loop, tier-1 loop, window_feed sequence, loop scene
+    reference, scale stream, bench sequences) futures."""
     full = pool.submit(generate_sequence, n_frames=N_LOOP_FRAMES, width=WIDTH,
                        height=HEIGHT, **LOOP_SEQ)
     small = pool.submit(generate_sequence, n_frames=TIER1_LOOP["n_frames"],
@@ -345,7 +389,9 @@ def start_renders(pool):
                        height=HEIGHT, **FEED_SEQ)
     scale = pool.submit(synthetic.SyntheticStream, width=WIDTH, height=HEIGHT,
                         render_backend="torch", **SCALE_SEQ)
-    return full, small, feed, pool.submit(loop_scene_reference), scale
+    bench_seqs = [pool.submit(render_bench_sequence, n)
+                  for n in (bench.PIPELINE_FRAMES, BENCH_SHORT_FRAMES)]
+    return full, small, feed, pool.submit(loop_scene_reference), scale, bench_seqs
 
 
 def bound_record(n_bytes: float, n_ops: float) -> dict:
@@ -362,11 +408,15 @@ def fast_bound(img: torch.Tensor) -> dict:
     return bound_record(2 * img.numel() * 4, img.numel() * FAST_OPS_PER_PIXEL)
 
 
-def brief_bound(n: int) -> dict:
-    """rBRIEF is a sparse read: per keypoint the 512 samples it needs
-    (not the whole image), its coordinates, cos and sin, and 8 words
-    out; the 4 KiB pattern once."""
-    return bound_record(n * (512 * 4 + 8 + 8 + 32) + 4096,
+def brief_bound(*parts) -> dict:
+    """rBRIEF is a sparse read: per keypoint the 512 samples it needs, but
+    of each image no more than the whole image, which every sample lies
+    in; per keypoint its coordinates, cos and sin, and 8 words out; the
+    4 KiB pattern once.  ``parts``: (keypoints, f32 elements of the image
+    they sample) for each image of the launch."""
+    n = sum(k for k, _ in parts)
+    samples = sum(min(k * 512 * 4, pixels * 4) for k, pixels in parts)
+    return bound_record(samples + n * (8 + 8 + 32) + 4096,
                         n * BRIEF_OPS_PER_KEYPOINT)
 
 
@@ -431,8 +481,8 @@ def brief_words_err(desc_k, desc_t, what: str) -> float:
 def check_brief_canvas(kp, what: str) -> dict:
     """brief_canvas on one frame's kept keypoints: every word against the
     twin at each block size the launch takes, the three clocks at the
-    shipped block size, ``graph_ms`` at 1, 2, 4 and 8 warps a block, and
-    the launch floor (an empty kernel on the same grid) beside them."""
+    shipped block size and at 1, 2, 4 and 8 warps a block, and the launch
+    floor (an empty kernel on the same grid) beside them."""
     n = kp.cxy.shape[0]
     dev = kp.blur.device
     cos, sin = (t.contiguous() for t in desc_ops.cos_sin(kp.angle))
@@ -445,22 +495,21 @@ def check_brief_canvas(kp, what: str) -> dict:
         def launch(warps=warps):
             return kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin, warps)
         brief_words_err(launch(), twin, f"brief_canvas ({what}, {warps} warps a block)")
-        by_warps[str(warps)] = time_graph_ms(launch)
+        by_warps[str(warps)] = clocks(launch)
     rec = record(
         kernels.BRIEF_CANVAS, err,
         clocks(lambda: kernels.brief_canvas_kernel(kp.blur, kp.cxy, cos, sin)),
         time_ms(lambda: kernels.brief_canvas_gather(kp.blur, kp.cxy, cos, sin)),
-        brief_bound(n), f"canvas, {n} keypoints")
+        brief_bound((n, kp.blur.numel())), f"canvas, {n} keypoints")
     rec["floor_graph_ms"] = time_graph_ms(
         lambda: kernels.brief_canvas_floor_kernel(dev, n))
-    rec["graph_ms_by_warps"] = by_warps
+    rec["clocks_by_warps"] = by_warps
     show(f"brief_canvas {what}", rec, "words equal")
     log(f"brief_canvas {what}: launch floor (empty kernel, same grid) "
         f"{rec['floor_graph_ms']:.5f} ms in a graph, so the body takes "
         f"{rec['graph_ms'] - rec['floor_graph_ms']:.5f} ms; half the bound is "
-        f"reached at {2 * rec['bound_ms']:.5f} ms; graph_ms by warps a block "
-        f"{ {w: round(t, 5) for w, t in by_warps.items()} } (shipped: "
-        f"{kernels.BRIEF_CANVAS_WARPS})")
+        f"reached at {2 * rec['bound_ms']:.5f} ms; clocks by warps a block "
+        f"{by_warps} (shipped: {kernels.BRIEF_CANVAS_WARPS})")
     return rec
 
 
@@ -518,7 +567,8 @@ def check_brief_level(padded_blur, xy, ang, level: int) -> None:
         kernels.BRIEF_LEVEL, err,
         clocks(lambda: kernels.brief_level_kernel(padded_blur, xy, cos, sin)),
         time_ms(lambda: kernels.brief_level_gather(padded_blur, xy, cos, sin)),
-        brief_bound(xy.shape[0]), f"level {level}, {xy.shape[0]} keypoints")
+        brief_bound((xy.shape[0], padded_blur.numel())),
+        f"level {level}, {xy.shape[0]} keypoints")
     show(f"brief_level level {level} {tuple(padded_blur.shape)}, {xy.shape[0]} "
          f"keypoints", rec, "words equal")
 
@@ -583,7 +633,8 @@ def check_frame_launches(imgs, per_level, fast_rec) -> dict:
                 for p, k, (c, s) in zip(padded, xys, cs)]
 
     level_rec = record(kernels.BRIEF_LEVEL, err, clocks(brief_one),
-                       time_ms(brief_twin), brief_bound(n_kp),
+                       time_ms(brief_twin),
+                       brief_bound(*((k.shape[0], p.numel()) for k, p in zip(xys, padded))),
                        f"a frame's {len(padded)} level images, {n_kp} keypoints")
     show(f"brief_level the frame's {len(padded)} images, {n_kp} keypoints, one "
          f"launch", level_rec, "words equal")
@@ -1576,6 +1627,93 @@ def run_scale(stream, device) -> dict:
     return dict(counts=counts, first=first, last=last, ate=ate)
 
 
+def count_built_frames() -> tuple:
+    """Count ``build_stereo_frame`` calls where the bench, the ``System``
+    and the tracking programs make their frames; returns (counter, undo)."""
+    modules = (bench, system_mod, tracking_mod)
+    real = [m.build_stereo_frame for m in modules]
+    built = Counter()
+
+    def counted(fn):
+        def build(*args, **kwargs):
+            built["frames"] += 1
+            return fn(*args, **kwargs)
+        return build
+
+    for m, fn in zip(modules, real):
+        m.build_stereo_frame = counted(fn)
+
+    def undo():
+        for m, fn in zip(modules, real):
+            m.build_stereo_frame = fn
+    return built, undo
+
+
+def run_bench(seq, device, ate_sync: float) -> dict:
+    """Phase 16: every configuration of the bench through ``run_config``,
+    the default first at bench.py's own lengths and passes; then
+    brief_canvas at the high-density slot count.  Returns the default
+    run's launch counts and brief_canvas' high-density record."""
+    built, undo = count_built_frames()
+    t_phase = time.perf_counter()
+    try:
+        for i, (config, mode) in enumerate(BENCH_RUNS):
+            which = f"bench BENCH_CONFIG={config!r} BENCH_MODE={mode}"
+            n = None if i == 0 else BENCH_SHORT_FRAMES
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            built.clear()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec, detail = bench.run_config(config, device, n_frames=n, mode=mode,
+                                           passes=3 if i == 0 else 1)
+            seconds = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            print(json.dumps(rec), flush=True)
+            log(f"  {which}: {seconds:.2f} s, frames built {built['frames']}, "
+                f"launches {counts}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            if i == 0:
+                default_counts = counts
+            if config in bench.TRACKING_CONFIGS:
+                poses = detail.poses
+            else:
+                poses = detail.corrected_trajectory()
+                require(len(detail.trajectory) == rec["n_frames"],
+                        f"{which}: {len(detail.trajectory)} poses")
+                require(not detail._async_q and not detail._maint_pipe
+                        and not detail._maint_queue
+                        and detail._pending_window is None,
+                        f"{which}: work left in flight")
+            require(bool(np.isfinite(poses).all()), f"{which}: non-finite pose")
+            for name in ATLAS_KERNELS:
+                require(counts[name] == built["frames"] > 0,
+                        f"{which}: {name} launched {counts[name]} times for "
+                        f"{built['frames']} frames built")
+            require(counts["brief_level"] == 0, f"{which}: brief_level launched")
+            if i == 0:
+                gate = max(2.0 * ate_sync, 0.15)
+                log(f"  ATE {rec['ate_rmse_m']} m against phase 7's gate "
+                    f"max(2 x {ate_sync:.4f}, 0.15) = {gate:.4f} m")
+                require(rec["ate_rmse_m"] < gate, f"{which}: ATE {rec['ate_rmse_m']}")
+                require("async:rescue" not in rec["schedule_events"],
+                        f"{which}: events {rec['schedule_events']}")
+    finally:
+        undo()
+
+    orb = dataclasses.replace(config_of(seq, N_FEATURES).orb,
+                              n_features=bench.DENSITY * N_FEATURES)
+    left = torch.as_tensor(seq.left[0], device=device).to(torch.float32)
+    right = torch.as_tensor(seq.right[0], device=device).to(torch.float32)
+    kp = atlas.atlas_keypoints(
+        left, right, orb, pyr_ops.build_pyramid(left, orb.scale_factor, orb.n_levels),
+        pyr_ops.build_pyramid(right, orb.scale_factor, orb.n_levels))
+    dense = check_brief_canvas(
+        kp, f"{kp.cxy.shape[0]} keypoints (n_features={orb.n_features})")
+    log(f"phase 16 (bench): {time.perf_counter() - t_phase:.2f} s")
+    return dict(counts=default_counts, dense=dense)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1681,6 +1819,9 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
     run_viewer(seq, cfg, device)
     run_renderer(renders[3].result(), device, smi)
     scale = run_scale(renders[4].result(), device)
+    for f in renders[5]:
+        f.result()
+    benched = run_bench(seq, device, ate_sync)
 
     # launches: each kernel's count from the System run of its own path;
     # the main path is the pipelined schedule
@@ -1689,7 +1830,9 @@ def run_phases(device, smi: str, kernels_only: bool, pool) -> None:
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["launches_scale"] = scale["counts"][rec["name"]]
+        rec["launches_bench"] = benched["counts"][rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} never launched on its path")
+    records[1]["highdensity"] = benched["dense"]
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -393,6 +393,11 @@ class SlamMap:
         C = _bucket(len(cams), CG_CAM_BUCKETS if cg else CAM_BUCKETS)
         P = _bucket(len(pnt_ids), CG_PNT_BUCKETS if cg else PNT_BUCKETS)
         obs_buckets = CG_OBS_BUCKETS if cg else OBS_BUCKETS
+        # beyond the largest bucket the problem is cut, as in the JAX
+        # package (its slam_map.py:369); the cuts are counted
+        for what, n, cap in (("cams", len(cams), C), ("points", len(pnt_ids), P)):
+            if n > cap:
+                self.counters[f"ba.truncated_{what}"] += n - cap
         cams = cams[:C]
         n_free = min(n_free, C)
         pnt_ids = pnt_ids[:P]
@@ -402,6 +407,9 @@ class SlamMap:
             oc, op, okf, oft = self.core.assemble_obs(
                 cams, pnt_ids, cap=obs_buckets[-1])
         n_obs = len(oc)
+        if n_obs == obs_buckets[-1]:
+            # the gather stopped at its capacity: later observations are cut
+            self.counters["ba.obs_at_capacity"] += 1
         if n_obs < 20 or len(pnt_ids) < 10:
             return dict(ran=False)
         O = _bucket(n_obs, obs_buckets)

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -41,28 +40,10 @@ import torch
 from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from pyorbslam_tpu_torch.io.synthetic import SyntheticStream
 from pyorbslam_tpu_torch.slam.system import System
+from pyorbslam_tpu_torch.utils.device import device_line, device_of
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 
 SPAN = 100   # frames of each progress block and of the two rate spans
-
-
-def device_of(name: str) -> torch.device:
-    """``name`` as a torch device; a CUDA name without CUDA fails."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available "
-                         "(pass --device cpu to run on the CPU)")
-    return device
-
-
-def device_line(device: torch.device) -> str:
-    """The card's ``nvidia-smi`` name and power limit, or ``cpu``."""
-    if device.type != "cuda":
-        return "cpu"
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def peak_mb(device: torch.device):

@@ -28,7 +28,7 @@ import numpy as np
 from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from pyorbslam_tpu_torch.io.synthetic import generate_sequence
 from pyorbslam_tpu_torch.slam.system import System
-from pyorbslam_tpu_torch.tools.eval_scale import device_line, device_of
+from pyorbslam_tpu_torch.utils.device import device_line, device_of
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse, rpe
 
 SEQUENCES = [

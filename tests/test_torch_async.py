@@ -37,8 +37,10 @@ from pyorbslam_tpu.utils.metrics import ate_rmse
 
 from pyorbslam_tpu_torch import convert, stereo_kitti
 from pyorbslam_tpu_torch.io import kitti as tkitti
+from pyorbslam_tpu_torch.io.synthetic import SyntheticSequence
 from pyorbslam_tpu_torch.optim import epnp as tepnp
 from pyorbslam_tpu_torch.slam import system as tsystem
+from pyorbslam_tpu_torch.tools import make_kitti_synth
 from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
 
 # The whole test run has six workers on eight cores: with torch's default of
@@ -465,25 +467,14 @@ class TestRescue:
 
 @pytest.fixture(scope="module")
 def kitti_dir(seq30, tmp_path_factory):
-    """A KITTI-layout directory written here: 8 frames of the sequence as
-    PNGs, times.txt and a settings YAML."""
-    import cv2
+    """A KITTI-layout directory written by the port's
+    ``tools/make_kitti_synth.py``: 8 frames of the sequence as PNGs,
+    times.txt, poses.txt and a settings YAML."""
     root = tmp_path_factory.mktemp("kitti")
-    for sub, imgs in (("image_2", seq30.left), ("image_3", seq30.right)):
-        os.makedirs(root / sub)
-        for i in range(8):
-            assert cv2.imwrite(str(root / sub / f"{i:06d}.png"),
-                               np.asarray(imgs[i]).astype(np.uint8))
-    with open(root / "times.txt", "w") as f:
-        f.writelines(f"{seq30.timestamps[i]:.6e}\n" for i in range(8))
-    K = seq30.K
-    with open(root / "settings.yaml", "w") as f:
-        f.write("%YAML:1.0\n"
-                f"Camera.fx: {K[0, 0]}\nCamera.fy: {K[1, 1]}\n"
-                f"Camera.cx: {K[0, 2]}\nCamera.cy: {K[1, 2]}\n"
-                "Camera.width: 512\nCamera.height: 160\nCamera.fps: 10.0\n"
-                f"Camera.bf: {seq30.bf}\nThDepth: 40\n"
-                "ORBextractor.nFeatures: 1000\n")
+    make_kitti_synth.write_kitti(SyntheticSequence(
+        left=seq30.left[:8], right=seq30.right[:8], poses_wc=seq30.poses_wc[:8],
+        K=seq30.K, baseline=seq30.baseline, timestamps=seq30.timestamps[:8]),
+        str(root))
     return root
 
 

@@ -205,6 +205,18 @@ class TestFastTwin:
         b = 4
         np.testing.assert_allclose(got[b:-b, b:-b], ref[b:-b, b:-b], atol=1e-5)
 
+    @pytest.mark.parametrize("shape", [(1, 50), (5, 7), (31, 40), (32, 33),
+                                       (33, 9), (64, 65), (97, 211)])
+    def test_row_blocks_equal_the_whole_image(self, shape):
+        """On the CPU the twin runs in blocks of rows; every block sees its
+        neighbours' rows as the whole image does, so the scores are the
+        same to the bit, at every block edge and on a short last block."""
+        img = T(np.random.default_rng(5).uniform(0, 255, shape).astype(np.float32))
+        pad = torch.nn.functional.pad(img[None, None], (3, 3, 3, 3),
+                                      mode="replicate")[0, 0]
+        whole = tfast._fast_block(pad, *shape)
+        assert torch.equal(tfast.fast_score_map(img), whole)
+
 
 def _jax_gather_branch(blur, cxy, ang):
     """The JAX package's CPU descriptor branch, atlas.py:296-307."""

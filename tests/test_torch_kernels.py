@@ -354,7 +354,9 @@ def test_imports_without_jax():
         "        'tools.dispatch_timing', 'utils.checkpoint', 'parallel.dist_ba',\n"
         "        'parallel.dist_pose_graph', 'parallel.multihost', 'viz.live_viewer',\n"
         "        'viz.drawer', 'io.render_torch', 'tools.multihost_dryrun',\n"
-        "        'tools.eval_scale', 'tools.eval_synth']\n"
+        "        'tools.eval_scale', 'tools.eval_synth', 'bench',\n"
+        "        'tools.make_kitti_synth', 'tools.train_vocab', 'tools.scaling_report',\n"
+        "        'utils.device']\n"
         "missing = [w for w in want if 'pyorbslam_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "assert not any(n == 'pyorbslam_tpu' or n.startswith('pyorbslam_tpu.')\n"
