@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.geometry import se3
+from pyorbslam_tpu_torch.utils import trace
 
 CHI2_STEREO = 7.815
 
@@ -137,6 +138,7 @@ def _lm_rounds(
     return T
 
 
+@trace.spanned("track.pose_opt")
 def pose_optimization(
     Tcw0: torch.Tensor,        # (4, 4) initial pose
     Xw: torch.Tensor,          # (N, 3) map point world positions

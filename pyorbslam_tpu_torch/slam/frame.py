@@ -20,6 +20,7 @@ from pyorbslam_tpu_torch.ops import stereo as stereo_ops
 from pyorbslam_tpu_torch.ops.atlas import extract_features_atlas
 from pyorbslam_tpu_torch.ops.extractor import extract_features_stereo
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import device_constant
 
 
@@ -41,6 +42,7 @@ class StereoFrame(NamedTuple):
         return self.xy.shape[0]
 
 
+@trace.spanned("track.frontend")
 def build_stereo_frame(
     left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig
 ) -> StereoFrame:

@@ -29,7 +29,6 @@ seeds ``jax.random.PRNGKey(kf)``: the two draw other sets
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import defaultdict, deque
 from typing import Dict, List, Set, Tuple
 
@@ -53,6 +52,7 @@ from pyorbslam_tpu_torch.slam.local_mapping import (
 )
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import _consts
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import upload
 
 
@@ -259,12 +259,11 @@ class LoopCloser:
         cand_ok = np.stack([
             ks.kp_valid[c] & (clm >= 0) & lm.alive[np.maximum(clm, 0)]
             for c, clm in zip(sel, cand_lms)])
-        t_bow = time.perf_counter()
-        bow_rows = self._match_bow_batch(
-            self._up(ks.kp_desc[kf]), self._up(ks.kp_node[kf]),
-            self._up(cur_ok), self._up(ks.kp_desc[sel]),
-            self._up(ks.kp_node[sel]), self._up(cand_ok))
-        self.times["loop.sim3_bow"] += time.perf_counter() - t_bow
+        with trace.stage(self.times, "loop.sim3_bow"):
+            bow_rows = self._match_bow_batch(
+                self._up(ks.kp_desc[kf]), self._up(ks.kp_node[kf]),
+                self._up(cur_ok), self._up(ks.kp_desc[sel]),
+                self._up(ks.kp_node[sel]), self._up(cand_ok))
 
         for ci, cand in enumerate(candidates):
             cand_lm = cand_lms[ci]
@@ -302,17 +301,16 @@ class LoopCloser:
                     [a, np.full((pad,) + a.shape[1:], fill, a.dtype)]) \
                     if pad else a
 
-            t_sub = time.perf_counter()
-            res = self._ransac(
-                kf, _p(X1c), _p(X2c), _p(uv1), _p(uv2), _p(s2_1, 1.0),
-                _p(s2_2, 1.0), np.arange(B) < n)
-            # one read: R (9) | t (3) | s (1) | inliers (B)
-            out = _pack_f32(res.R, res.t, res.s, res.inliers)
-            R_r, t_r, s_r = out[:9].reshape(3, 3), out[9:12], float(out[12])
-            inl_all = out[13:].astype(bool)
-            n_in = int(inl_all.sum())
-            res_ok = n_in >= 20
-            self.times["loop.sim3_ransac"] += time.perf_counter() - t_sub
+            with trace.stage(self.times, "loop.sim3_ransac"):
+                res = self._ransac(
+                    kf, _p(X1c), _p(X2c), _p(uv1), _p(uv2), _p(s2_1, 1.0),
+                    _p(s2_2, 1.0), np.arange(B) < n)
+                # one read: R (9) | t (3) | s (1) | inliers (B)
+                out = _pack_f32(res.R, res.t, res.s, res.inliers)
+                R_r, t_r, s_r = out[:9].reshape(3, 3), out[9:12], float(out[12])
+                inl_all = out[13:].astype(bool)
+                n_in = int(inl_all.sum())
+                res_ok = n_in >= 20
             self.events.append((kf, cand, "ransac", n_in if res_ok else -1))
             if not res_ok:
                 continue
@@ -324,10 +322,9 @@ class LoopCloser:
             inl = inl_all[:n]
             seed_q = qi[inl]
             seed_f = fi[inl]
-            t_sub = time.perf_counter()
-            grown12 = self._search_by_sim3(kf, cand, R_r, t_r, s_r,
-                                           seed_q, seed_f)
-            self.times["loop.sim3_grow"] += time.perf_counter() - t_sub
+            with trace.stage(self.times, "loop.sim3_grow"):
+                grown12 = self._search_by_sim3(kf, cand, R_r, t_r, s_r,
+                                               seed_q, seed_f)
 
             N = ks.obs_lm.shape[1]
             pair_f = np.full(N, -1, np.int32)
@@ -363,19 +360,19 @@ class LoopCloser:
                 isig1[g1] = 1.0 / sigma2[ks.kp_octave[kf, g1]]
                 isig2[g1] = 1.0 / sigma2[ks.kp_octave[cand, g2]]
 
-            t_sub = time.perf_counter()
-            U = self._up
-            opt = optimize_sim3(
-                U(np.asarray(R_r, np.float32)), U(np.asarray(t_r, np.float32)),
-                U(np.asarray(s_r, np.float32)),
-                U(X1), U(X2), U(uv1f), U(uv2f), U(isig1), U(isig2),
-                U(active), cam4, th2=10.0, fix_scale=True,
-            )
-            # one read: R (9) | t (3) | s (1) | inliers (N)
-            out = _pack_f32(opt.R, opt.t, opt.s, opt.inliers)
-            opt_inl = out[13:].astype(bool)
-            n_opt_inl = int(opt_inl.sum())
-            self.times["loop.sim3_opt"] += time.perf_counter() - t_sub
+            with trace.stage(self.times, "loop.sim3_opt"):
+                U = self._up
+                opt = optimize_sim3(
+                    U(np.asarray(R_r, np.float32)),
+                    U(np.asarray(t_r, np.float32)),
+                    U(np.asarray(s_r, np.float32)),
+                    U(X1), U(X2), U(uv1f), U(uv2f), U(isig1), U(isig2),
+                    U(active), cam4, th2=10.0, fix_scale=True,
+                )
+                # one read: R (9) | t (3) | s (1) | inliers (N)
+                out = _pack_f32(opt.R, opt.t, opt.s, opt.inliers)
+                opt_inl = out[13:].astype(bool)
+                n_opt_inl = int(opt_inl.sum())
             self.events.append((kf, cand, "sim3_opt", n_opt_inl))
             if n_opt_inl < 20:
                 continue
@@ -396,10 +393,9 @@ class LoopCloser:
             # loop-region point cloud into the current KF with Scw
             # (search_by_projection_ckf_scw_mp, th=10, TH_LOW) and count
             # total MATCHES: the reference accepts at >= 40 matches
-            t_sub = time.perf_counter()
-            n_total = len(match_map) + self._project_loop_points(
-                kf, cand, Scw, match_map)
-            self.times["loop.sim3_proj"] += time.perf_counter() - t_sub
+            with trace.stage(self.times, "loop.sim3_proj"):
+                n_total = len(match_map) + self._project_loop_points(
+                    kf, cand, Scw, match_map)
             self.events.append((kf, cand, "total_matches", n_total))
             if n_total >= 40:
                 return cand, Scw, match_map
@@ -704,14 +700,13 @@ class LoopCloser:
         # reprojection chi2 prefers.  The margin biases toward acceptance:
         # a genuine loop closure briefly raises local chi2 until the global
         # BA polishes, so only a clearly worse correction is rolled back.
-        t0 = time.perf_counter()
-        e_corr = m.reprojection_chi2()
-        corr_Tcw = ks.Tcw[: ks.n].copy()
-        corr_pos = lm.pos[: lm.n].copy()
-        ks.Tcw[: ks.n] = snap_Tcw
-        lm.pos[: lm.n] = snap_pos
-        e_snap = m.reprojection_chi2()
-        self.times["loop.accept_check"] += time.perf_counter() - t0
+        with trace.stage(self.times, "loop.accept_check"):
+            e_corr = m.reprojection_chi2()
+            corr_Tcw = ks.Tcw[: ks.n].copy()
+            corr_pos = lm.pos[: lm.n].copy()
+            ks.Tcw[: ks.n] = snap_Tcw
+            lm.pos[: lm.n] = snap_pos
+            e_snap = m.reprojection_chi2()
         self.events.append(
             f"loop:accept_check chi2_corr={e_corr:.2f} chi2_snap={e_snap:.2f}")
         # margin calibration (the JAX package's observed events): harmful
@@ -829,18 +824,15 @@ class LoopCloser:
         """Run the full loop-closing pipeline; returns True if a loop was
         closed (LoopClosing.run, one iteration).  Stage wall clock lands
         in ``self.times``."""
-        t0 = time.perf_counter()
-        cands = self.detect(kf, bow)
-        self.times["loop.detect"] += time.perf_counter() - t0
+        with trace.stage(self.times, "loop.detect"):
+            cands = self.detect(kf, bow)
         if not cands:
             return False
-        t0 = time.perf_counter()
-        hit = self.compute_sim3(kf, cands)
-        self.times["loop.sim3"] += time.perf_counter() - t0
+        with trace.stage(self.times, "loop.sim3"):
+            hit = self.compute_sim3(kf, cands)
         if hit is None:
             return False
         loop_kf, Scw, match_map = hit
-        t0 = time.perf_counter()
-        self.correct(kf, loop_kf, Scw, match_map)
-        self.times["loop.correct"] += time.perf_counter() - t0
+        with trace.stage(self.times, "loop.correct"):
+            self.correct(kf, loop_kf, Scw, match_map)
         return True

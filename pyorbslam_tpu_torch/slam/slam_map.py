@@ -32,9 +32,7 @@ sharded over a device mesh (``parallel/dist_ba.py``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +44,7 @@ from pyorbslam_tpu_torch.native.mapcore_ffi import MapCore
 from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import ba, ba_cg
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import HostRead, device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -363,14 +362,6 @@ class SlamMap:
             max_move=bacfg.local_ba_max_move_m,
         )
 
-    @contextlib.contextmanager
-    def _t(self, label: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[label] += time.perf_counter() - t0
-
     def _run_ba(self, cams, n_free: int, pnt_ids,
                 iters1: int, iters2: int, erase_outliers: bool,
                 engine: str = "dense", split: bool = False,
@@ -403,9 +394,12 @@ class SlamMap:
         pnt_ids = pnt_ids[:P]
 
         ks = self.keyframes
-        with self._t("ba.assemble"):
+        with trace.stage(self.times, "ba.assemble") as sp:
             oc, op, okf, oft = self.core.assemble_obs(
                 cams, pnt_ids, cap=obs_buckets[-1])
+            if sp is not None:
+                sp.args.update(cameras=len(cams), points=len(pnt_ids),
+                               observations=len(oc))
         n_obs = len(oc)
         if n_obs == obs_buckets[-1]:
             # the gather stopped at its capacity: later observations are cut
@@ -481,7 +475,7 @@ class SlamMap:
         if n_drop:
             self.counters["ba.grid_dropped_obs"] += n_drop
 
-        with self._t("ba.solve"):
+        with trace.stage(self.times, "ba.solve"):
             res = ba.bundle_adjust_grid_packed(
                 up(cam_Tcw), up(cam_fixed), up(pnt_pos), up(pnt_active),
                 up(g_cam), up(g_uvrq), up(g_oct), up(g_act), cam5,
@@ -530,7 +524,7 @@ class SlamMap:
             pnt_pos=up(pnt_pos), pnt_active=up(pnt_active),
             obs_cam=up(ocp), obs_pnt=up(opp), obs_uvr=up(ouvrp),
             obs_inv_sigma2=up(oisig), obs_active=up(oact), cam=cam5)
-        with self._t("ba.solve"):
+        with trace.stage(self.times, "ba.solve"):
             res = ba_cg.bundle_adjust_cg(prob, iters1=iters1, iters2=iters2)
             out = HostRead(_pack_ba_result(res.cam_Tcw, res.pnt_pos,
                                            res.obs_inlier)).numpy()
@@ -576,7 +570,7 @@ class SlamMap:
             pnt_active=t(pnt_active), obs_cam=t(g_oc), obs_pnt=t(g_op),
             obs_uvr=t(g_uvr), obs_inv_sigma2=t(g_isig), obs_active=t(g_act),
             cam=cam5)
-        with self._t("ba.solve"):
+        with trace.stage(self.times, "ba.solve"):
             d_cam, d_pnt, _ = dist_ba.distributed_bundle_adjust_cg(
                 dist_ba.shard_problem(prob, mesh), mesh, n_cam=C,
                 iters1=iters1, iters2=iters2)
@@ -591,7 +585,7 @@ class SlamMap:
         """Consume a split dense-BA dispatch: ONE host read, write back
         poses/points, erase outliers, refresh landmark geometry."""
         C, P, O = pend["C"], pend["P"], pend["O"]
-        with self._t("ba.read"):
+        with trace.stage(self.times, "ba.read"):
             out = pend["handle"].numpy()
         new_Tcw = out[: 16 * C].view(np.float32).reshape(C, 4, 4)
         new_pos = out[16 * C: 16 * C + 3 * P].view(np.float32).reshape(P, 3)
@@ -656,7 +650,7 @@ class SlamMap:
                 self.core.erase_observation(lm, int(okf[o]))
                 n_erased += 1
 
-        with self._t("ba.geometry"):
+        with trace.stage(self.times, "ba.geometry"):
             self.update_landmark_geometry(pnt_ids)
         return dict(
             ran=True, n_cams=len(cams), n_free=n_free,

@@ -43,9 +43,7 @@ picks a device for the caller.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from collections import defaultdict, deque
 from typing import Optional
 
@@ -82,6 +80,7 @@ from pyorbslam_tpu_torch.slam.tracking import (
     motion_track_step,
     unpack_bool_np,
 )
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -241,23 +240,20 @@ class System:
         work queued before it."""
         return upload(a, self.device)
 
-    @contextlib.contextmanager
     def _t(self, label: str, sync: bool = True):
-        """Wall-clock a pipeline stage into ``self.times``.  On a CUDA
+        """Wall-clock a pipeline stage into ``self.times`` (and a span
+        while tracing is on, ``utils/trace.py``).  On a CUDA
         device the stage's queued work is waited for first, so the time
         belongs to the stage that launched it; the stages of the
         pipelined schedule (``sync=False``, and everything a pipelined
         commit runs) exist to leave work in flight and are timed on the
         host alone."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync and not self._defer_maintenance \
-                    and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.times[label] += time.perf_counter() - t0
-            self.time_counts[label] += 1
+        return trace.stage(self.times, label, self.time_counts,
+                           self._stage_wait if sync else None)
+
+    def _stage_wait(self):
+        if not self._defer_maintenance and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float) -> np.ndarray:
@@ -299,6 +295,11 @@ class System:
         call :meth:`flush_async` to commit the tail).  Falls back to the
         synchronous per-frame machine until initialized or after a
         tracking loss."""
+        # the frames in flight commit first: this one's id comes after them
+        with trace.span("call.async", self.frame_id + 1 + len(self._async_q)):
+            return self._track_stereo_async_inner(left, right, timestamp)
+
+    def _track_stereo_async_inner(self, left, right, timestamp):
         if self.state not in ("OK", "MARGINAL") or self.map.keyframes.n == 0:
             self.flush_async()
             return self.track_stereo(left, right, timestamp)
@@ -321,13 +322,21 @@ class System:
 
     def flush_async(self):
         """Commit every in-flight pipelined frame."""
-        while self._async_q:
-            self._commit_chain(self._async_q.pop(0))
-        self._run_maintenance_queue()
+        with trace.span("call.flush"):
+            while self._async_q:
+                self._commit_chain(self._async_q.pop(0))
+            self._run_maintenance_queue()
 
     def _dispatch_chain(self, left, right, timestamp):
-        with self._t("async.dispatch", sync=False):
-            self._dispatch_chain_inner(left, right, timestamp)
+        # the id this frame is given at its commit
+        fid = self.frame_id + 1
+        with self._t("async.dispatch", sync=False) as sp:
+            if sp is not None:
+                sp.frame = fid
+            rec = self._dispatch_chain_inner(left, right, timestamp)
+            rec["frame_id"] = fid
+            if sp is not None:
+                sp.args.update(n_feat=rec["n_feat"], n_local=rec["n_local"])
 
     def _dispatch_chain_inner(self, left, right, timestamp):
         lm = self.map.landmarks
@@ -353,15 +362,23 @@ class System:
         # it (the JAX package's rule, its system.py:342)
         if self.frame_id + 1 - self.last_kf_frame >= 1:
             self._prefetch_snapshot(frame)
-        self._async_q.append(dict(
+        rec = dict(
             row=row, frame=frame, base=self.Tcw.copy(),
             p_ids=p_ids, n_local=len(local_ids),
             n_feat=int(q_lm.shape[0]), timestamp=timestamp,
-        ))
+        )
+        self._async_q.append(rec)
+        return rec
 
     def _commit_chain(self, rec):
-        with self._t("async.commit", sync=False):
+        n_kfs = self.map.keyframes.n
+        with self._t("async.commit", sync=False) as sp:
+            if sp is not None:
+                sp.frame = rec["frame_id"]
             self._commit_chain_inner(rec)
+            if sp is not None:
+                n = self.map.keyframes.n
+                sp.args["kf"] = n - 1 if n > n_kfs else -1
 
     def _commit_chain_inner(self, rec):
         lm = self.map.landmarks
@@ -372,6 +389,10 @@ class System:
         stats = out[:5]
         raw = out[5:21].copy().view(np.float32).reshape(4, 4)
         n_matches, n_in_motion, n_in_local = (int(x) for x in stats[:3])
+        sp = trace.current()    # the commit's
+        if sp is not None:
+            sp.args.update(matches=n_matches, inliers_motion=n_in_motion,
+                           inliers_local=n_in_local, rescue=0)
 
         # deferred maintenance may have refined the pose this frame's
         # prediction chained from (rec["base"]); rebase preserving the
@@ -384,6 +405,8 @@ class System:
             # retry, BoW reference-KF fallback, wide rescue, reloc)
             # takes this frame
             self.events.append("async:rescue")
+            if sp is not None:
+                sp.args["rescue"] = 1
             self._track(rec["frame"], rec["timestamp"])
             self.trajectory.append(self.Tcw.copy())
             self._append_frame_ref()
@@ -908,11 +931,19 @@ class System:
         rows any map mutation touched (including native-core kills the
         Python layer never sees) and only those rows are uploaded and
         written into the mirror tensors in place."""
-        lm = self.map.landmarks
         if force:
             self._mirror_stale = True
         if self._mirror is not None and not self._mirror_stale:
             return self._mirror
+        with trace.span("track.mirror") as sp:
+            rows = self._refresh_mirror()
+            if sp is not None:
+                sp.args["rows"] = rows
+        return self._mirror
+
+    def _refresh_mirror(self) -> int:
+        """Bring the mirror up to the store; returns the rows uploaded."""
+        lm = self.map.landmarks
         cap = 1 << 14
         while cap < lm.n:
             cap <<= 1
@@ -929,8 +960,10 @@ class System:
             self.map.core.drain_dirty()
             self._mirror_pending = np.empty(0, np.int32)
 
+        rows = 0
         if self._mirror is None or self._mirror_cap != cap:
             full_upload()
+            rows = cap
         else:
             # INCREMENTAL refresh: every mirrored-field writer marks the
             # ids it touched (LandmarkStore.mark_dirty; native kills are
@@ -961,6 +994,7 @@ class System:
             self._mirror_pending = cand[~changed]
             if len(ids) > cap // 4:
                 full_upload()
+                rows = cap
             elif len(ids):
                 pad = 256
                 while pad < len(ids):
@@ -972,14 +1006,17 @@ class System:
                 _mirror_scatter(self._mirror, self._dev(ids_p).long(), rows)
                 for f, s in zip(_MIRROR_FIELDS, self._mirror_shadow):
                     s[ids] = getattr(lm, f)[ids]
+                rows = pad
         self._mirror_stale = False
-        return self._mirror
+        return rows
 
     def _track_fused(self, left, right, timestamp: float):
         """Fast path: the whole per-frame hot path as one device program
         (tracking.fused_track_step) + one packed read-back.  Weak
         tracking goes to the step-by-step host path."""
-        with self._t("perframe.track"):
+        with self._t("perframe.track") as sp:
+            if sp is not None:
+                sp.frame = self.frame_id
             return self._track_fused_inner(left, right, timestamp)
 
     def _track_fused_inner(self, left, right, timestamp: float):
@@ -1191,6 +1228,7 @@ class System:
 
     # ---------------- local mapping (synchronous) ----------------
 
+    @trace.spanned("track.prefetch")
     def _prefetch_snapshot(self, frame: StereoFrame):
         """Launch the keyframe snapshot+BoW program for a device-resident
         frame.  Costs no host read if never consumed (the buffer is
@@ -1230,9 +1268,13 @@ class System:
 
     def _insert_keyframe(self, frame: StereoFrame, assign: np.ndarray,
                          timestamp: float, run_ba: bool):
-        with self._t("kf.insert_total"):
-            return self._insert_keyframe_inner(
-                frame, assign, timestamp, run_ba)
+        with self._t("kf.insert_total") as sp:
+            if sp is not None:
+                sp.frame = self.frame_id
+            kf = self._insert_keyframe_inner(frame, assign, timestamp, run_ba)
+            if sp is not None:
+                sp.args["kf"] = kf
+            return kf
 
     def _insert_keyframe_inner(self, frame: StereoFrame, assign: np.ndarray,
                                timestamp: float, run_ba: bool):
@@ -1291,13 +1333,15 @@ class System:
         if self.local_mapper is not None:
             # triangulation + both fuse directions as ONE device program
             # + ONE packed read (LocalMapper.maintain)
-            with self._t("kf.maintain"):
+            with self._t("kf.maintain") as sp:
+                self._kf_span(sp, kf)
                 info = self.local_mapper.maintain(kf)
             self.events.append(("maintain", kf, info))
 
         if kf % self.ba_every_n_kf == 0:
             pre = self.map.keyframes.Tcw[kf].copy()
-            with self._t("kf.local_ba"):
+            with self._t("kf.local_ba") as sp:
+                self._kf_span(sp, kf)
                 info = self.map.local_ba(kf)
             self.events.append(("local_ba", kf, info))
             if info.get("ran"):
@@ -1308,9 +1352,7 @@ class System:
                     # adopt the BA-refined pose for the current camera
                     self.Tcw = self.map.keyframes.Tcw[kf].copy()
 
-        if self.local_mapper is not None and kf % 4 == 0:
-            self.local_mapper.cull_keyframes(
-                kf, on_removed=lambda k: self.kfdb.erase(k))
+        self._cull_keyframes(kf)
         self._loop_stage(kf, bow, adopt=not deferred, sync=True)
         self._mirror_stale = True
 
@@ -1326,12 +1368,14 @@ class System:
         if self.loop_closer is None:
             return
         pre = self.map.keyframes.Tcw[kf].copy()
-        with self._t("kf.loop", sync=sync):
+        with self._t("kf.loop", sync=sync) as sp:
+            self._kf_span(sp, kf)
             closed = self.loop_closer.on_keyframe(kf, bow)
         self.events.append(("loop", kf, closed))
         ran_slice = False
         if not closed:
-            with self._t("kf.gba_slice", sync=sync):
+            with self._t("kf.gba_slice", sync=sync) as sp:
+                self._kf_span(sp, kf)
                 ran_slice = self.loop_closer.run_gba_slice()
         if closed and adopt:
             self.Tcw = self.map.keyframes.Tcw[kf].copy()
@@ -1373,13 +1417,15 @@ class System:
             if lmapper is None:
                 it["stage"] = "maint_done"
                 return
-            with self._t("kf.maintain_dispatch", sync=False):
+            with self._t("kf.maintain_dispatch", sync=False) as sp:
+                self._maint_span(sp, it)
                 it["pend"] = lmapper.maintain_dispatch(kf)
             if it["pend"] is None:
                 # ring rotated a participant out: separate-step fallback
                 # (its own reads wait for its results; the timer must not
                 # also wait for the frame dispatched just before)
-                with self._t("kf.maintain", sync=False):
+                with self._t("kf.maintain", sync=False) as sp:
+                    self._maint_span(sp, it)
                     info = dict(new=lmapper.create_new_points(kf),
                                 fused=lmapper.fuse_neighbors(kf),
                                 fallback=True)
@@ -1397,7 +1443,8 @@ class System:
             if it["pend"]["handle"].pending() and not it.get("waited"):
                 it["waited"] = True
                 return
-            with self._t("kf.maintain_apply", sync=False):
+            with self._t("kf.maintain_apply", sync=False) as sp:
+                self._maint_span(sp, it, "waited")
                 info = lmapper.maintain_apply(it["pend"])
             self.events.append(("maintain", kf, info))
             self._mirror_stale = True
@@ -1406,7 +1453,8 @@ class System:
         if it["stage"] == "maint_done":
             if kf % self.ba_every_n_kf == 0:
                 it["pre"] = self.map.keyframes.Tcw[kf].copy()
-                with self._t("kf.ba_dispatch", sync=False):
+                with self._t("kf.ba_dispatch", sync=False) as sp:
+                    self._maint_span(sp, it)
                     r = self.map.local_ba(kf, split=True)
                 if r.get("pending") is not None:
                     it["ba_pend"] = r["pending"]
@@ -1420,7 +1468,8 @@ class System:
             if it["ba_pend"]["handle"].pending() and not it.get("ba_waited"):
                 it["ba_waited"] = True
                 return
-            with self._t("kf.ba_apply", sync=False):
+            with self._t("kf.ba_apply", sync=False) as sp:
+                self._maint_span(sp, it, "ba_waited")
                 info = self.map.local_ba_apply(it["ba_pend"])
             self.events.append(("local_ba", kf, info))
             delta = self.map.keyframes.Tcw[kf] @ np.linalg.inv(it["pre"])
@@ -1429,12 +1478,37 @@ class System:
             it["stage"] = "post_ba"
             return self._advance_maint_item(it)
         if it["stage"] == "post_ba":
-            if lmapper is not None and kf % 4 == 0:
-                lmapper.cull_keyframes(
-                    kf, on_removed=lambda k: self.kfdb.erase(k))
+            self._cull_keyframes(kf)
             self._loop_stage(kf, it["bow"], adopt=False, sync=False)
             self._mirror_stale = True
             it["stage"] = "done"
+
+    def _kf_span(self, sp, kf: int):
+        """A keyframe stage's span (None while tracing is off) gets the id
+        of the frame that made the keyframe, before anything inside it
+        opens a span, and the keyframe as a counter."""
+        if sp is not None:
+            sp.frame = int(self.map.keyframes.frame_id[kf])
+            sp.args["kf"] = kf
+
+    def _maint_span(self, sp, it, waited: Optional[str] = None):
+        """:meth:`_kf_span` for a mapping-pipe stage, with the items in the
+        pipe and, for a read, whether its readiness wait was taken."""
+        if sp is None:
+            return
+        self._kf_span(sp, it["kf"])
+        sp.args["pipe_depth"] = len(self._maint_pipe)
+        if waited is not None:
+            sp.args["deferred"] = int(bool(it.get(waited)))
+
+    def _cull_keyframes(self, kf: int):
+        """Keyframe culling, every 4th keyframe."""
+        if self.local_mapper is None or kf % 4 != 0:
+            return
+        with trace.span("kf.cull") as sp:
+            self._kf_span(sp, kf)
+            self.local_mapper.cull_keyframes(
+                kf, on_removed=lambda k: self.kfdb.erase(k))
 
     # ---------------- reference-keyframe tracking ----------------
 
@@ -1685,6 +1759,7 @@ class System:
             ids = ids[np.argpartition(d2[ids], cap)[:cap]]
         return ids.astype(np.int32)
 
+    @trace.spanned("track.local_ids")
     def _local_point_ids(self, assign: np.ndarray) -> np.ndarray:
         """update_local_keyframes + update_local_points (Tracking.py:392-436):
         KFs observing currently-assigned landmarks, plus their best

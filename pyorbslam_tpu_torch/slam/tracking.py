@@ -42,6 +42,7 @@ from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import pose_opt
 from pyorbslam_tpu_torch.slam.frame import StereoFrame, build_stereo_frame, unproject
 from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -107,6 +108,7 @@ def _scatter_slots(n_feat: int, matched: torch.Tensor, idx: torch.Tensor,
     return out[:n_feat]
 
 
+@trace.spanned("track.motion")
 def motion_track_step(
     frame: StereoFrame,
     q_pos: torch.Tensor,        # (Q, 3) landmark world positions (per last-frame slot)
@@ -195,6 +197,7 @@ def motion_track_step(
     )
 
 
+@trace.spanned("track.local")
 def local_track_step(
     frame: StereoFrame,
     feat_xw: torch.Tensor,      # (N, 3) world pos for already-assigned features

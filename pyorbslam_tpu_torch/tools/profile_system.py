@@ -5,21 +5,23 @@
 
 Runs the port's ``System`` (default configuration, loop closing on) over
 the first frames of the 1241x376 / 2000-feature synthetic sequence that
-``chip_smoke.py`` uses, twice:
+``chip_smoke.py`` uses, in fresh ``System``s; frames after ``--warm``
+count.  With ``--pipelined`` every run goes through
+``System.track_stereo_async``.
 
-1. **Stages.**  The device functions of a frame (``build_stereo_frame``,
-   ``motion_track_step``, ``local_track_step``, ``pose_optimization``)
-   and of a keyframe (``kf_snapshot``, ``maintenance_ring_step``,
-   ``bundle_adjust_grid``) are wrapped so that each call is timed on the
-   host clock between two ``torch.cuda.synchronize()``.  Frames after
-   ``--warm`` count.  A stage's time holds the stages it calls
-   (``pose_optimization`` runs inside the two track steps).
-2. **Profiler.**  A fresh run; ``torch.profiler`` traces the frames after
-   ``--warm``: kernel launches and device kernel time per frame, the ten
-   kernels with the most device time, and the device's idle share
-   (1 - kernel time / wall time of the window; the profiler slows the
-   host, so the share is an upper bound).  With ``--pipelined`` this run
-   goes through ``System.track_stereo_async``.
+1. **Spans.**  A run with the program's span recorder
+   (``utils/trace.py``) on: wall ms a frame, and its spans by name:
+   calls, host ms a frame (a span's time holds the spans inside it) and
+   the means of their counters.
+2. **Profiler.**  One more run with the recorder on and ``torch.profiler``
+   recording the device's activity alone: launches, kernel time and busy
+   time a frame (the union of the device's operation intervals, so
+   overlapping streams count once), the idle share of the window (the
+   profiler slows the host's launches, so it is an upper bound), the ten
+   kernels with the most device time, and ``by_span``: each kernel put
+   down to the innermost span open when its ``cudaLaunchKernel`` record
+   was taken (matched by correlation id), each idle gap to the innermost
+   span open when it began.
 
 Prints the card's ``nvidia-smi`` name and power limit first and one JSON
 object last.  It needs a CUDA device and fails without one.
@@ -28,27 +30,26 @@ object last.  It needs a CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import subprocess
 import time
 from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from pyorbslam_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from pyorbslam_tpu_torch.io.synthetic import generate_sequence
-from pyorbslam_tpu_torch.optim import ba, pose_opt
-from pyorbslam_tpu_torch.slam import local_mapping, system, tracking
+from pyorbslam_tpu_torch.slam import system
+from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
 WIDTH, HEIGHT, N_FEATURES = 1241, 376, 2000
-STAGES = (
-    (tracking, "build_stereo_frame"), (tracking, "motion_track_step"),
-    (tracking, "local_track_step"), (pose_opt, "pose_optimization"),
-    (system, "kf_snapshot"), (local_mapping, "maintenance_ring_step"),
-    (ba, "bundle_adjust_grid"),
-)
+COPY_PREFIXES = ("Memcpy", "Memset")
+OUTSIDE = "outside"        # no program span open
+UNMATCHED = "unmatched"    # a kernel with no launch record in the trace
 
 
 def make_run(n_frames: int):
@@ -67,71 +68,97 @@ def new_system(cfg, device):
     return system.System(cfg, device, keyframe_capacity=256)
 
 
-@contextlib.contextmanager
-def timed_stages(totals: dict, counts: dict, enabled: list):
-    """Replace each stage function by a synced, timed wrapper in the
-    module that looks it up; restore on exit."""
-    saved = []
-
-    def wrap(name, fn):
-        def timed(*args, **kwargs):
-            if not enabled[0]:
-                return fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            totals[name] += time.perf_counter() - t0
-            counts[name] += 1
-            return out
-        return timed
-
-    try:
-        for module, name in STAGES:
-            fn = getattr(module, name)
-            saved.append((module, name, fn))
-            setattr(module, name, wrap(name, fn))
-        yield
-    finally:
-        for module, name, fn in saved:
-            setattr(module, name, fn)
+# ------------------------------------------------------------- attribution
 
 
-def stage_pass(seq, cfg, device, warm: int) -> dict:
-    totals, counts, enabled = defaultdict(float), defaultdict(int), [False]
-    sysm = new_system(cfg, device)
-    n = seq.left.shape[0]
-    with timed_stages(totals, counts, enabled):
-        for i in range(n):
-            if i == warm:
-                enabled[0] = True
-                torch.cuda.synchronize()
-                kfs0, t0 = sysm.map.keyframes.n, time.perf_counter()
-            sysm.track_stereo(seq.left[i], seq.right[i], seq.timestamps[i])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    frames = n - warm
-    out = dict(frames=frames, keyframes=sysm.map.keyframes.n - kfs0,
-               ms_per_frame=1e3 * wall / frames,
-               states=sorted(set(s["state"] for s in sysm.stats)))
-    for name in totals:
-        out[name] = dict(calls=counts[name],
-                         ms_per_call=1e3 * totals[name] / counts[name],
-                         ms_per_frame=1e3 * totals[name] / frames)
+def innermost(spans: List[Tuple[int, int, str]]):
+    """Cut a host timeline of nesting spans (start_ns, end_ns, name) into
+    stretches with one innermost open span: (starts, names), sorted by
+    start; ``OUTSIDE`` where none is open."""
+    marks = sorted([(a, 1, -b, i) for i, (a, b, _) in enumerate(spans)]
+                   + [(b, 0, -a, i) for i, (a, b, _) in enumerate(spans)])
+    stack: List[int] = []
+    starts, names = [], []
+    for t, opening, _, i in marks:
+        if opening:
+            stack.append(i)
+        else:
+            stack.remove(i)
+        starts.append(t)
+        names.append(spans[stack[-1]][2] if stack else OUTSIDE)
+    return starts, names
+
+
+def attribute(spans: List[Tuple[int, int, str]], launches: Dict[int, int],
+              kernels: List[Tuple[int, int, int]],
+              ops: List[Tuple[int, int]], window: Tuple[int, int]) -> dict:
+    """Put the device's work and idle time down to the program's spans,
+    all on one clock (ns): each kernel (start, end, correlation id) to the
+    innermost span open at its launch record's time (``launches``:
+    correlation id -> host ns), ``UNMATCHED`` without one; each stretch
+    of ``window`` in which no operation of ``ops`` (start, end) ran to
+    the innermost span open when it began.  Returns {name: {launches,
+    device_s, idle_s}}."""
+    starts, names = innermost(spans)
+
+    def at(t):
+        k = bisect.bisect_right(starts, t) - 1
+        return names[k] if k >= 0 else OUTSIDE
+
+    out: Dict[str, dict] = defaultdict(
+        lambda: dict(launches=0, device_s=0.0, idle_s=0.0))
+    for a, b, corr in kernels:
+        t = launches.get(corr)
+        row = out[at(t) if t is not None else UNMATCHED]
+        row["launches"] += 1
+        row["device_s"] += (b - a) * 1e-9
+    w0, w1 = window
+    edges = [w0]
+    for a, b in union([(max(a, w0), min(b, w1)) for a, b in ops
+                       if min(b, w1) > max(a, w0)]):
+        edges += [a, b]
+    edges.append(w1)
+    for g0, g1 in zip(edges[0::2], edges[1::2]):
+        if g1 > g0:
+            out[at(g0)]["idle_s"] += (g1 - g0) * 1e-9
+    return dict(out)
+
+
+def union(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            if b > out[-1][1]:
+                out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
     return out
 
 
-def device_time_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    raise RuntimeError("this torch.profiler reports no device time per event")
+def device_events(events):
+    """A device-only trace's records: the launch records' host times by
+    correlation id, the kernels (start, end, correlation id, name) and
+    every device operation (start, end)."""
+    launches, kernels, ops = {}, [], []
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ops.append((e.start_ns(), e.end_ns()))
+            if not e.name().startswith(COPY_PREFIXES):
+                kernels.append((e.start_ns(), e.end_ns(), e.correlation_id(),
+                                e.name()))
+        elif "Launch" in e.name():
+            launches[e.correlation_id()] = e.start_ns()
+    return launches, kernels, ops
 
 
-def profiler_pass(seq, cfg, device, warm: int, pipelined: bool = False) -> dict:
-    """``torch.profiler`` over frames ``warm``.. of a ``System`` run; with
-    ``pipelined`` through ``track_stereo_async`` (flushed inside the
-    traced window, so every traced frame's work is in it)."""
+# ------------------------------------------------------------------- runs
+
+
+def drive(seq, cfg, device, warm: int, pipelined: bool,
+          profiler: bool = False) -> dict:
+    """One fresh ``System`` over the sequence; the frames after ``warm``
+    measured (with ``pipelined`` flushed inside the window, so every
+    measured frame's work is in it)."""
     from torch.profiler import ProfilerActivity, profile
 
     sysm = new_system(cfg, device)
@@ -141,41 +168,86 @@ def profiler_pass(seq, cfg, device, warm: int, pipelined: bool = False) -> dict:
         track(seq.left[i], seq.right[i], seq.timestamps[i])
     sysm.flush_async()
     torch.cuda.synchronize()
-    kfs0, t0 = sysm.map.keyframes.n, time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(warm, n):
-            track(seq.left[i], seq.right[i], seq.timestamps[i])
-        sysm.flush_async()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    kfs0 = sysm.map.keyframes.n
+    trace.drain()
+    with profile(activities=[ProfilerActivity.CUDA]) if profiler \
+            else contextlib.nullcontext() as prof:
+        trace.enable()
+        try:
+            w0, t0 = time.time_ns(), time.perf_counter()
+            for i in range(warm, n):
+                track(seq.left[i], seq.right[i], seq.timestamps[i])
+            sysm.flush_async()
+            torch.cuda.synchronize()
+            wall, w1 = time.perf_counter() - t0, time.time_ns()
+        finally:
+            trace.disable()
     frames = n - warm
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    return dict(frames=frames, keyframes=sysm.map.keyframes.n - kfs0,
+                ms_per_frame=1e3 * wall / frames,
+                drained=trace.drain(), window=(w0, w1),
+                events=prof.profiler.kineto_results.events() if prof else None)
+
+
+def span_table(drained: trace.Drained, frames: int) -> dict:
+    """By span name: calls and host ms a frame, and each counter's mean."""
+    rows: Dict[str, dict] = {}
+    for s in drained.spans:
+        r = rows.setdefault(s.name, dict(calls=0, host_ms=0.0, args=defaultdict(list)))
+        r["calls"] += 1
+        r["host_ms"] += (s.t1_ns - s.t0_ns) * 1e-6
+        for k, v in s.args.items():
+            r["args"][k].append(v)
+    return {name: dict(calls_per_frame=r["calls"] / frames,
+                       host_ms_per_frame=r["host_ms"] / frames,
+                       counters={k: sum(v) / len(v) for k, v in r["args"].items()})
+            for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["host_ms"])}
+
+
+def profiled(run: dict, top_n: int = 10) -> dict:
+    """The profiled run's numbers, a frame."""
+    frames = run["frames"]
+    launches, kernels, ops = device_events(run["events"])
+    if not ops:
         raise RuntimeError("torch.profiler recorded no device event")
-    launches = sum(e.count for e in kernels)
-    kernel_ms = sum(device_time_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=device_time_us, reverse=True)[:10]
+    w0, w1 = run["window"]
+    busy_s = sum(b - a for a, b in union(
+        [(max(a, w0), min(b, w1)) for a, b in ops if min(b, w1) > max(a, w0)])) * 1e-9
+    window_s = (w1 - w0) * 1e-9
+    spans = [(s.t0_ns, s.t1_ns, s.name) for s in run["drained"].epoch_spans()]
+    by = attribute(spans, launches, [(a, b, c) for a, b, c, _ in kernels], ops,
+                   run["window"])
+    by_name: Dict[str, List] = defaultdict(lambda: [0, 0.0])
+    for a, b, _, name in kernels:
+        by_name[name][0] += 1
+        by_name[name][1] += (b - a) * 1e-9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
     return dict(
-        frames=frames, keyframes=sysm.map.keyframes.n - kfs0,
-        wall_ms_per_frame=1e3 * wall / frames,
-        launches_per_frame=launches / frames,
-        kernel_ms_per_frame=kernel_ms / frames,
-        idle_share=1.0 - kernel_ms / (1e3 * wall),
-        top_kernels=[dict(name=e.key[:80], launches_per_frame=e.count / frames,
-                          ms_per_frame=device_time_us(e) / 1e3 / frames)
-                     for e in top])
+        frames=frames, wall_ms_per_frame=run["ms_per_frame"],
+        launches_per_frame=len(kernels) / frames,
+        kernel_ms_per_frame=1e3 * sum(v[1] for v in by_name.values()) / frames,
+        busy_ms_per_frame=1e3 * busy_s / frames,
+        idle_share=1.0 - busy_s / window_s,
+        launch_records=len(launches),
+        by_span={name: dict(launches_per_frame=r["launches"] / frames,
+                            device_ms_per_frame=1e3 * r["device_s"] / frames,
+                            idle_ms_per_frame=1e3 * r["idle_s"] / frames)
+                 for name, r in sorted(by.items(), key=lambda kv: -kv[1]["idle_s"])},
+        sums=dict(launches=sum(r["launches"] for r in by.values()),
+                  kernels=len(kernels),
+                  idle_s=sum(r["idle_s"] for r in by.values()),
+                  window_minus_busy_s=window_s - busy_s),
+        top_kernels=[dict(name=n[:80], launches_per_frame=v[0] / frames,
+                          ms_per_frame=1e3 * v[1] / frames) for n, v in top])
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
     ap.add_argument("--pipelined", action="store_true",
-                    help="trace System.track_stereo_async instead of "
-                         "track_stereo (the stage times stay those of the "
-                         "synchronous path: a synced stage cannot pipeline)")
-    args = ap.parse_args()
+                    help="run System.track_stereo_async instead of track_stereo")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_system needs a CUDA device; none is available")
     if not 0 < args.warm < args.frames:
@@ -188,27 +260,33 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     seq, cfg = make_run(args.frames)
-    stages = stage_pass(seq, cfg, device, args.warm)
-    print(f"stages over frames {args.warm}-{args.frames - 1} "
-          f"({stages['keyframes']} keyframes): "
-          f"{stages['ms_per_frame']:.1f} ms/frame with synced stages", flush=True)
-    for _, name in STAGES:
-        if name in stages:
-            s = stages[name]
-            print(f"  {name}: {s['ms_per_call']:.2f} ms/call x {s['calls']} "
-                  f"= {s['ms_per_frame']:.2f} ms/frame", flush=True)
-    prof = profiler_pass(seq, cfg, device, args.warm, args.pipelined)
-    print(f"profiler over the same frames"
+    run = drive(seq, cfg, device, args.warm, args.pipelined)
+    spans = span_table(run["drained"], run["frames"])
+    print(f"recorder on, frames {args.warm}-{args.frames - 1}"
           f"{' (pipelined schedule)' if args.pipelined else ''}: "
-          f"{prof['launches_per_frame']:.0f} "
-          f"launches/frame, {prof['kernel_ms_per_frame']:.2f} ms device kernel "
-          f"time/frame, {prof['wall_ms_per_frame']:.1f} ms wall/frame, idle "
-          f"share {prof['idle_share']:.4f}", flush=True)
+          f"{run['ms_per_frame']:.1f} ms/frame", flush=True)
+    prof = profiled(drive(seq, cfg, device, args.warm, args.pipelined,
+                          profiler=True))
+    print(f"profiler (device only, recorder on): {prof['launches_per_frame']:.0f} "
+          f"launches/frame, {prof['kernel_ms_per_frame']:.2f} ms kernel time/frame, "
+          f"busy {prof['busy_ms_per_frame']:.2f} ms of {prof['wall_ms_per_frame']:.1f} "
+          f"ms/frame, idle share {prof['idle_share']:.4f}", flush=True)
+    print(f"{'span':24s} {'calls/f':>8s} {'host ms/f':>10s} {'launch/f':>9s} "
+          f"{'dev ms/f':>9s} {'idle ms/f':>10s}  counters", flush=True)
+    for name in list(dict.fromkeys(list(prof["by_span"]) + list(spans))):
+        h, d = spans.get(name, {}), prof["by_span"].get(name, {})
+        counters = " ".join(f"{k}={v:.1f}" for k, v in h.get("counters", {}).items())
+        print(f"{name:24s} {h.get('calls_per_frame', 0):8.2f} "
+              f"{h.get('host_ms_per_frame', 0):10.2f} "
+              f"{d.get('launches_per_frame', 0):9.1f} "
+              f"{d.get('device_ms_per_frame', 0):9.3f} "
+              f"{d.get('idle_ms_per_frame', 0):10.2f}  {counters}", flush=True)
     for k in prof["top_kernels"]:
         print(f"  {k['ms_per_frame']:.3f} ms/frame  {k['launches_per_frame']:.0f}x  "
               f"{k['name']}", flush=True)
     print(json.dumps(dict(card=smi, device=torch.cuda.get_device_name(0),
-                          stages=stages, profiler=prof)))
+                          pipelined=args.pipelined,
+                          ms_per_frame=run["ms_per_frame"], spans=spans, profiler=prof)))
 
 
 if __name__ == "__main__":
