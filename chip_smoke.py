@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--kernels-only]
 
 1. Device and build: refuses to run without CUDA, turns TF32 off, prints
-   the card's name and power limit, builds the three CUDA kernels from
+   the card's name and power limit, builds the four CUDA kernels from
    ``pyorbslam_tpu_torch/csrc`` (one nvcc each, started together) and
    the native map core, and prints the build time and each kernel's
    registers, shared memory and spills.
@@ -36,6 +36,12 @@
    and the public wrapper in a stream (``frame_wrapper_ms``; for
    brief_level it adds cos and sin, three concatenations and the bounds
    check's host read).
+   The pose optimizer's kernel (K4, ``csrc/pose_opt.cu``) against its twin
+   ``pose_optimization_ref`` on the same card tensors, at the path's shapes:
+   the 2048 slots of a 2000-feature frame and the slots of bench.py's
+   8000-feature frame, ~40% of the edges active and 20% outliers (poses
+   within 1e-4, inlier masks equal but on edges within 1% of the gate),
+   with the same three clocks beside the twin's and its bound.
    With ``--kernels-only`` the script renders a 2-frame sequence of the
    same size and stops here.  The whole GPU frame of either configuration
    (``use_atlas`` True and False) is also held against the same frame
@@ -56,6 +62,9 @@
    closed nothing (the straight sequence never revisits a place).  Prints
    frames/s and the stage times of ``System.times`` (``kf.loop`` and
    ``kf.gba_slice`` among them) and the loop closer's ``detect`` calls.
+   In this and every other ``run_system`` run the span recorder is on, and
+   pose_opt must have launched once per ``track.pose_opt`` span: the
+   kernel, never the twin, ran every pose optimization.
 6. The per-level configuration (``use_atlas=False``) through ``System``
    over the first 12 frames: the same requirements (5 keyframes, 859
    triangulated), fast_score and brief_level launched exactly once per
@@ -231,7 +240,7 @@ from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops.hamming import unpack_bits
 from pyorbslam_tpu_torch.ops.extractor import level_keypoints
-from pyorbslam_tpu_torch.optim import ba, ba_cg
+from pyorbslam_tpu_torch.optim import ba, ba_cg, pose_opt
 from pyorbslam_tpu_torch.optim.pose_graph import optimize_pose_graph_cg
 from pyorbslam_tpu_torch.parallel import dist_ba, multihost
 from pyorbslam_tpu_torch.slam import system as system_mod
@@ -243,7 +252,7 @@ from pyorbslam_tpu_torch.slam.tracking import Tracker, fused_track_chain_step
 from pyorbslam_tpu_torch.tools import eval_scale, gba_tiling
 from pyorbslam_tpu_torch.tools import multihost_dryrun as dryrun
 from pyorbslam_tpu_torch.tools.timing import time_graph_ms, time_ms, time_stream_ms
-from pyorbslam_tpu_torch.utils import checkpoint
+from pyorbslam_tpu_torch.utils import checkpoint, trace
 from pyorbslam_tpu_torch.utils.metrics import ate_rmse
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 from pyorbslam_tpu_torch.viz.live_viewer import LiveViewer
@@ -308,6 +317,16 @@ PEAK_F32_OPS_PER_S = 67e12
 # the address; per pair one comparison.
 FAST_OPS_PER_PIXEL = 2 * (32 + 32 + 15) + 2 + 1 + 2
 BRIEF_OPS_PER_KEYPOINT = 512 * 11 + 256
+# pose_opt per edge: the residual (the point 18, the clamp and 1/z 3, u, v,
+# ur, e 11) 32 and chi2 6 in every pass; pass 1 adds the Huber weight 5, the
+# Jacobian's factors and 12 nonzero entries 24, 21 H entries and 6 b entries
+# at 7 each and the cost 6; pass 2 the cost 6; a gate its compare 2.
+# Bytes: Xw, obs, inv_sigma2 and active0 read once (29 an edge), chi2 and
+# the mask written once (5).
+POSE_OPS_PASS1 = 32 + 6 + 5 + 24 + 27 * 7 + 6
+POSE_OPS_PASS2 = 32 + 6 + 6
+POSE_OPS_GATE = 32 + 6 + 2
+POSE_BYTES_PER_EDGE = 29 + 5
 
 
 def log(msg: str) -> None:
@@ -670,11 +689,64 @@ def check_frame_launches(imgs, per_level, fast_rec) -> dict:
     return level_rec
 
 
+def pose_opt_bound(n: int, rounds: int, iters: int) -> dict:
+    """Every iteration's two passes over the edges, a gate a round and the
+    final pass; the inputs read once, the outputs written once."""
+    ops = n * (rounds * iters * (POSE_OPS_PASS1 + POSE_OPS_PASS2)
+               + (rounds + 1) * POSE_OPS_GATE)
+    return bound_record(n * POSE_BYTES_PER_EDGE + 64 + 20 + 64 + 4, ops)
+
+
+def check_pose_opt(cfg, device) -> dict:
+    """K4 against its twin on the same card tensors at the path's two
+    shapes; returns the record at the cells' 2048 slots, with the 8000-
+    feature frame's under ``dense``.  The kernel sums in another order, so
+    the pose agrees to float32 rounding and an edge within 1% of the gate
+    may fall on either side (tests/test_torch_kernels.py's tolerances)."""
+    rounds, iters = cfg.ba.pose_rounds, cfg.ba.pose_iters_per_round
+
+    def one(n: int, what: str) -> dict:
+        args = pose_opt.synthetic_problem(17, n, noise_px=0.5, outlier_frac=0.2,
+                                          active_frac=0.4, device=device)
+        got = pose_opt.pose_optimization(*args, rounds=rounds, iters=iters)
+        want = pose_opt.pose_optimization_ref(*args, rounds, iters)
+        err = float((got.Tcw - want.Tcw).abs().max())
+        near = ((want.chi2 - pose_opt.CHI2_STEREO).abs()
+                <= 0.01 * pose_opt.CHI2_STEREO) & args[4]
+        off = int(((got.inliers != want.inliers) & ~near).sum())
+        d_in = abs(int(got.num_inliers) - int(want.num_inliers))
+        require(err < 1e-4, f"pose_opt at {n} edges: Tcw off its twin's by {err}")
+        require(off == 0 and d_in <= int(near.sum()),
+                f"pose_opt at {n} edges: {off} inlier flags differ away from "
+                f"the gate, num_inliers {int(got.num_inliers)} against "
+                f"{int(want.num_inliers)}")
+        rec = record(
+            kernels.POSE_OPT, err,
+            clocks(lambda: kernels.pose_opt_kernel(*args, rounds, iters,
+                                                   pose_opt.CHI2_STEREO)),
+            time_ms(lambda: pose_opt.pose_optimization_ref(*args, rounds, iters),
+                    reps=5),
+            pose_opt_bound(n, rounds, iters), what)
+        show(f"pose_opt {what}", rec,
+             f"max|dTcw| {err:.2e}, inliers {int(got.num_inliers)} (twin "
+             f"{int(want.num_inliers)}, {int(near.sum())} edges near the gate)")
+        return rec
+
+    n = cfg.orb.max_keypoints
+    rec = one(n, f"{n} edges ({cfg.orb.n_features} features), 40% active, "
+                 f"20% outliers, {rounds} x {iters} iterations")
+    dense = dataclasses.replace(cfg.orb, n_features=bench.N_FEATURES * bench.DENSITY)
+    rec["dense"] = one(dense.max_keypoints, f"{dense.max_keypoints} edges "
+                       f"({dense.n_features} features)")
+    return rec
+
+
 def check_kernels(seq, cfg, device) -> list:
     """Phase 2: each kernel against its twin on the frame's own tensors.
     Returns one record per kernel, at the shape its path gives it: the
     canvas for fast_score and brief_canvas (the atlas path), a frame's 16
-    level images in one launch for brief_level (the per-level path)."""
+    level images in one launch for brief_level (the per-level path), a
+    frame's keypoint slots for pose_opt."""
     orb = cfg.orb
     left = torch.as_tensor(seq.left[0], device=device).to(torch.float32)
     right = torch.as_tensor(seq.right[0], device=device).to(torch.float32)
@@ -713,7 +785,7 @@ def check_kernels(seq, cfg, device) -> list:
     check_brief_corners([p[4] for p in per_level], [p[0] for p in per_level],
                         [p[3] for p in per_level], device)
     level_rec = check_frame_launches(imgs, per_level, fast_rec)
-    return [fast_rec, canvas_rec, level_rec]
+    return [fast_rec, canvas_rec, level_rec, check_pose_opt(cfg, device)]
 
 
 def check_frame_against_cpu(seq, cfg, device) -> None:
@@ -876,6 +948,8 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
     syncs = watch_dispatch_syncs(system) if pipelined else None
     track = system.track_stereo_async if pipelined else system.track_stereo
     kernels.reset_launch_counts()
+    trace.drain()
+    trace.enable()
     t_first = None
     t0 = time.perf_counter()
     for i in range(n_frames):
@@ -887,7 +961,13 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
         system.flush_async()
     system.shutdown()
     elapsed = time.perf_counter() - t0
+    trace.disable()
     counts = kernels.launch_counts()
+    pose_spans = sum(1 for sp in trace.drain().spans if sp.name == "track.pose_opt")
+    if device.type == "cuda":
+        require(pose_spans > 0 and counts["pose_opt"] == pose_spans,
+                f"{which}: pose_opt launched {counts['pose_opt']} times in "
+                f"{pose_spans} track.pose_opt spans")
     # frame 0 initializes (state OK asserted by the keyframe checks below)
     states = [st["state"] for st in system.stats]
     require(len(states) == n_frames - 1, f"{which}: {len(states)} tracked frames")
@@ -911,7 +991,8 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
         f"{int(system.map.landmarks.alive.sum())} of {system.map.landmarks.n}, "
         f"local BA ran {n_ba} of {len(ba_runs)}, triangulated {n_new}, fused "
         f"{n_fused}, fallbacks to separate steps "
-        f"{sum(1 for r in maintains if r['fallback'])}, launches {counts}")
+        f"{sum(1 for r in maintains if r['fallback'])}, launches {counts}, "
+        f"track.pose_opt spans {pose_spans}")
     for label, times, n_of in (
             [(k, system.times, system.time_counts)
              for k in (ASYNC_STAGES if pipelined else STAGES)]

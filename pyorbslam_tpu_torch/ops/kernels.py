@@ -2,7 +2,8 @@
 and plain twins.
 
 Three kernels carry the per-frame frontend; they replace the three
-Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
+Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``.  A fourth,
+``pose_opt``, is the tracking steps' pose optimizer:
 
 * ``fast_score`` (``csrc/fast_score.cu``), FAST-9/16 corner strength over
   a list of images in one launch: the atlas canvas alone
@@ -22,6 +23,13 @@ Pallas kernels of ``pyorbslam_tpu/ops/pallas_kernels.py``:
   :func:`brief_descriptors_levels_ref`, that is
   :func:`pyorbslam_tpu_torch.ops.orb_descriptor.brief_descriptors` once
   per image.
+* ``pose_opt`` (``csrc/pose_opt.cu``), every round and Levenberg-Marquardt
+  iteration of one motion-only pose optimization in one launch
+  (:func:`pose_opt_kernel`, called by
+  :func:`pyorbslam_tpu_torch.optim.pose_opt.pose_optimization`).  It
+  replaces no Pallas kernel but the JAX package's ``fori_loop``, which XLA
+  compiles into one program.  Twin:
+  :func:`pyorbslam_tpu_torch.optim.pose_opt.pose_optimization_ref`.
 
 The two multi-image kernels take their image table by value in the
 kernel's parameters, at most ``MAX_IMAGES`` = 16 entries (8 levels x left
@@ -88,7 +96,7 @@ class CudaKernel:
         self.source = source            # path relative to the repo root
         self.symbol = symbol
         self.argtypes = argtypes
-        self.replaces = replaces        # file:line of the TPU kernel
+        self.replaces = replaces        # file:line of the JAX code it replaces
         self.launches = 0
         self._lib = None
         self._fn = None
@@ -198,7 +206,14 @@ BRIEF_LEVEL = CudaKernel(
     [ctypes.POINTER(_BriefTable), _P, _P, _P, _P, _P, _I, _P],
     replaces="pyorbslam_tpu/ops/pallas_kernels.py:206",
 )
-KERNELS: List[CudaKernel] = [FAST_SCORE, BRIEF_CANVAS, BRIEF_LEVEL]
+POSE_OPT = CudaKernel(
+    "pose_opt", "pyorbslam_tpu_torch/csrc/pose_opt.cu", "pose_opt_launch",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P, _P, _P, _P, _P],
+    replaces="pyorbslam_tpu/optim/pose_opt.py:132",
+)
+KERNELS: List[CudaKernel] = [FAST_SCORE, BRIEF_CANVAS, BRIEF_LEVEL, POSE_OPT]
+# edges of one pose_opt launch: 512 threads x a 64-bit flag register each
+POSE_OPT_MAX_EDGES = 512 * 64
 
 
 def build_kernels() -> Dict[str, str]:
@@ -513,3 +528,56 @@ def brief_descriptors_level(
     """Steered rBRIEF on one level: the one-image case of
     :func:`brief_descriptors_levels`."""
     return brief_descriptors_levels([padded_blurred], [xy], [angle_deg])
+
+
+def check_pose_inputs(Tcw0: torch.Tensor, Xw: torch.Tensor, obs: torch.Tensor,
+                      inv_sigma2: torch.Tensor, active0: torch.Tensor,
+                      cam: torch.Tensor, rounds: int, iters: int) -> torch.device:
+    """Raise unless the pose optimizer's inputs are contiguous tensors on one
+    device, float32 but ``active0`` (bool), of shapes (4, 4), (N, 3), (N, 3),
+    (N,), (N,), (5,), with N at most ``POSE_OPT_MAX_EDGES`` and ``rounds``,
+    ``iters`` >= 0; returns the device.  The same rules hold on the CPU,
+    where the twin runs, so a caller that would be refused on a card is
+    refused in the CPU tests too."""
+    dev = Tcw0.device
+    n = Xw.shape[0] if Xw.dim() == 2 else -1
+    if not 0 <= n <= POSE_OPT_MAX_EDGES:
+        raise ValueError(f"pose_optimization: Xw of shape {tuple(Xw.shape)}; one "
+                         f"launch takes (N, 3) with N <= {POSE_OPT_MAX_EDGES}")
+    if rounds < 0 or iters < 0:
+        raise ValueError(f"pose_optimization: rounds {rounds}, iters {iters}")
+    for name, t, dtype, shape in (
+            ("Tcw0", Tcw0, torch.float32, (4, 4)), ("Xw", Xw, torch.float32, (n, 3)),
+            ("obs", obs, torch.float32, (n, 3)),
+            ("inv_sigma2", inv_sigma2, torch.float32, (n,)),
+            ("active0", active0, torch.bool, (n,)), ("cam", cam, torch.float32, (5,))):
+        if t.device != dev:
+            raise ValueError(f"pose_optimization: {name} is on {t.device}, Tcw0 on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    return dev
+
+
+def pose_opt_kernel(Tcw0: torch.Tensor, Xw: torch.Tensor, obs: torch.Tensor,
+                    inv_sigma2: torch.Tensor, active0: torch.Tensor,
+                    cam: torch.Tensor, rounds: int, iters: int, chi2_gate: float):
+    """One pose_opt launch on CUDA tensors: ``rounds`` x ``iters``
+    iterations, the gates at ``chi2_gate`` and the final residuals.  Returns
+    (Tcw (4, 4), inliers (N,) bool, num_inliers () int32, chi2 (N,))."""
+    dev = check_pose_inputs(Tcw0, Xw, obs, inv_sigma2, active0, cam, rounds, iters)
+    if dev.type != "cuda":
+        raise ValueError(f"pose_opt: expected CUDA tensors, got {dev}")
+    n = Xw.shape[0]
+    T = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty((n,), dtype=torch.bool, device=dev)
+    n_in = torch.empty((), dtype=torch.int32, device=dev)
+    chi2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    POSE_OPT.launch(
+        dev, Tcw0.data_ptr(), Xw.data_ptr(), obs.data_ptr(), inv_sigma2.data_ptr(),
+        active0.data_ptr(), cam.data_ptr(), n, rounds, iters, chi2_gate,
+        T.data_ptr(), inliers.data_ptr(), n_in.data_ptr(), chi2.data_ptr())
+    return T, inliers, n_in, chi2

@@ -13,6 +13,11 @@ of ``VertexSE3Expmap``.
 Every decision stays on the device (``torch.where``, ``solve_ex``
 without error checks), so an optimization reads nothing back to the
 host.  Inactive slots carry zero weight.
+
+:func:`pose_optimization` runs the whole call as one launch of the CUDA
+kernel ``csrc/pose_opt.cu`` for CUDA tensors (``ops/kernels.py``), and
+its plain twin :func:`pose_optimization_ref`, the eager loop below, for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.geometry import se3
+from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.utils import trace
 
 CHI2_STEREO = 7.815
@@ -138,8 +144,7 @@ def _lm_rounds(
     return T
 
 
-@trace.spanned("track.pose_opt")
-def pose_optimization(
+def pose_optimization_ref(
     Tcw0: torch.Tensor,        # (4, 4) initial pose
     Xw: torch.Tensor,          # (N, 3) map point world positions
     obs: torch.Tensor,         # (N, 3) measurements (u, v, u_right)
@@ -149,6 +154,8 @@ def pose_optimization(
     rounds: int = 4,
     iters: int = 10,
 ) -> PoseOptResult:
+    """The plain twin of the pose_opt kernel: ``rounds`` x ``iters``
+    eager LM iterations (about 180 launches each on a card)."""
     delta = float(np.sqrt(CHI2_STEREO))
     inlier = active0
     T = Tcw0
@@ -169,3 +176,64 @@ def pose_optimization(
     enough = torch.sum(active0.to(torch.int32)) >= 3
     T = torch.where(enough, T, Tcw0)
     return PoseOptResult(Tcw=T, inliers=inlier, num_inliers=n_in, chi2=chi2)
+
+
+@trace.spanned("track.pose_opt")
+def pose_optimization(
+    Tcw0: torch.Tensor,        # (4, 4) initial pose
+    Xw: torch.Tensor,          # (N, 3) map point world positions
+    obs: torch.Tensor,         # (N, 3) measurements (u, v, u_right)
+    inv_sigma2: torch.Tensor,  # (N,) per-edge information scale
+    active0: torch.Tensor,     # (N,) bool: has map point & stereo obs
+    cam: torch.Tensor,         # (5,) [fx, fy, cx, cy, bf]
+    rounds: int = 4,
+    iters: int = 10,
+) -> PoseOptResult:
+    """Motion-only pose optimization: one launch of the pose_opt kernel for
+    CUDA tensors, the twin :func:`pose_optimization_ref` for CPU tensors.
+    Inputs: contiguous float32 tensors (``active0`` bool) on one device;
+    anything else raises (``kernels.check_pose_inputs``)."""
+    dev = kernels.check_pose_inputs(Tcw0, Xw, obs, inv_sigma2, active0, cam,
+                                    rounds, iters)
+    if dev.type == "cpu":
+        return pose_optimization_ref(Tcw0, Xw, obs, inv_sigma2, active0, cam,
+                                     rounds, iters)
+    return PoseOptResult(*kernels.pose_opt_kernel(
+        Tcw0, Xw, obs, inv_sigma2, active0, cam, rounds, iters, CHI2_STEREO))
+
+
+def synthetic_problem(seed: int, n: int, noise_px: float = 0.3,
+                      outlier_frac: float = 0.0, active_frac: float = 1.0,
+                      pose_err: float = 0.2, device="cpu") -> tuple:
+    """A stereo pose problem for holding the kernel to its twin (the tests,
+    ``chip_smoke.py``): N points 4-40 m ahead of a 400 px camera at a random
+    pose, Gaussian pixel noise, a share of gross outliers, a share of
+    active edges, per-octave weights and a start ``pose_err`` away (the JAX
+    package's ``tests/test_pose_opt.py::make_problem``, with numpy's seeded
+    draws).  Returns the six inputs of :func:`pose_optimization` on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    cam = np.array([400.0, 400.0, 320.0, 120.0, 180.0], np.float32)
+    Xw = np.stack([rng.uniform(-10, 10, n), rng.uniform(-3, 3, n),
+                   rng.uniform(4, 40, n)], 1).astype(np.float32)
+
+    def exp(xi):
+        return se3.exp_se3(torch.as_tensor(xi.astype(np.float32))).numpy()
+
+    T_true = exp(np.concatenate([rng.normal(0, 0.05, 3), rng.normal(0, 0.5, 3)]))
+    Pc = Xw @ T_true[:3, :3].T + T_true[:3, 3]
+    u = cam[0] * Pc[:, 0] / Pc[:, 2] + cam[2]
+    v = cam[1] * Pc[:, 1] / Pc[:, 2] + cam[3]
+    obs = np.stack([u, v, u - cam[4] / Pc[:, 2]], 1).astype(np.float32)
+    obs += rng.normal(0, noise_px, obs.shape).astype(np.float32)
+    n_out = int(outlier_frac * n)
+    if n_out:
+        idx = rng.choice(n, n_out, replace=False)
+        obs[idx, :2] += rng.uniform(20, 80, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+        obs[idx, 2] = obs[idx, 0] - rng.uniform(1, 50, n_out)
+    T0 = exp(np.concatenate([rng.normal(0, pose_err * 0.1, 3),
+                             rng.normal(0, pose_err, 3)])) @ T_true
+    active = rng.random(n) < active_frac
+    inv_sigma2 = (1.0 / 1.44 ** rng.integers(0, 8, n)).astype(np.float32)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (T0.astype(np.float32), Xw, obs, inv_sigma2, active, cam))

@@ -456,7 +456,7 @@ class TestPerLevelCallStructure:
         assert m.sum() > 300
         assert ((got["depth"] > 0) == m).mean() >= 0.99
         assert kernels.launch_counts() == {
-            "fast_score": 0, "brief_canvas": 0, "brief_level": 0}
+            "fast_score": 0, "brief_canvas": 0, "brief_level": 0, "pose_opt": 0}
 
 
 class TestOrientation:

@@ -4,6 +4,7 @@ building or loading anything, refuses tensors it cannot launch on, and
 the port imports with JAX unavailable."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -15,6 +16,7 @@ from pyorbslam_tpu_torch.ops import fast as fast_ops
 from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.ops import orb_descriptor as desc_ops
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
+from pyorbslam_tpu_torch.optim import pose_opt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -134,13 +136,38 @@ class TestCpuWrappers:
                                    torch.as_tensor(np.roll(img, -4, axis=1)), cfg)
         assert int(frame.valid.sum()) > 50
         assert kernels.launch_counts() == {
-            "fast_score": 0, "brief_canvas": 0, "brief_level": 0}
+            "fast_score": 0, "brief_canvas": 0, "brief_level": 0, "pose_opt": 0}
+
+    @pytest.mark.parametrize("case", [
+        dict(n=300, noise_px=0.3, outlier_frac=0.15),
+        dict(n=256, noise_px=0.5, outlier_frac=0.2, active_frac=0.4),
+        dict(n=5, active_frac=0.0)], ids=["noisy", "sparse", "too_few"])
+    def test_pose_opt_wrapper_returns_twin_without_launch(self, case, no_build):
+        """For CPU tensors the wrapper is the twin: every output equal, no
+        launch and no build."""
+        args = pose_opt.synthetic_problem(4, **case)
+        got = pose_opt.pose_optimization(*args)
+        want = pose_opt.pose_optimization_ref(*args)
+        assert got.Tcw.dtype == torch.float32 and got.Tcw.shape == (4, 4)
+        assert got.inliers.dtype == torch.bool and got.inliers.shape == (case["n"],)
+        assert got.num_inliers.dtype == torch.int32 and got.num_inliers.shape == ()
+        assert got.chi2.dtype == torch.float32 and got.chi2.shape == (case["n"],)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if case.get("active_frac") == 0.0:
+            assert torch.equal(got.Tcw, args[0])
+        assert kernels.POSE_OPT.launches == 0
 
     def test_registry_lists_three_kernels(self):
+        """The three frontend kernels, each replacing a Pallas kernel, then
+        the pose optimizer, which replaces the JAX package's LM loop."""
         assert [k.name for k in kernels.KERNELS] == [
-            "fast_score", "brief_canvas", "brief_level"]
+            "fast_score", "brief_canvas", "brief_level", "pose_opt"]
         assert [k.replaces.rsplit(":", 1)[1] for k in kernels.KERNELS] == [
-            "83", "327", "206"]
+            "83", "327", "206", "132"]
+        assert [k.replaces.rsplit(":", 1)[0] for k in kernels.KERNELS] == [
+            "pyorbslam_tpu/ops/pallas_kernels.py"] * 3 + [
+            "pyorbslam_tpu/optim/pose_opt.py"]
         for k in kernels.KERNELS:
             assert os.path.exists(k.source_path)
             assert os.path.dirname(k.library_path) == kernels.BUILD_DIR
@@ -226,6 +253,49 @@ class TestNoFallback:
             call()
         assert kernels.BRIEF_LEVEL.launches == 0
 
+    @pytest.mark.parametrize("fault", [
+        "mixed_devices", "wrong_dtype", "float_mask", "wrong_shape", "ragged",
+        "non_contiguous", "bad_camera", "negative_rounds", "too_many_edges",
+        "not_cuda"])
+    def test_pose_opt_refuses(self, fault, no_build):
+        """The pose optimizer raises on what its kernel cannot take, on the
+        CPU path too (the twin would run it), and never launches; the meta
+        device stands in for a card."""
+        args = list(pose_opt.synthetic_problem(5, 64))
+        meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        kw = {}
+        call = pose_opt.pose_optimization
+        if fault == "mixed_devices":
+            args[1], match = meta(args[1]), "Xw is on meta, Tcw0 on cpu"
+        elif fault == "wrong_dtype":
+            args[2], match = args[2].double(), "obs: expected torch.float32"
+        elif fault == "float_mask":
+            args[4], match = args[4].float(), "active0: expected torch.bool"
+        elif fault == "wrong_shape":
+            args[0], match = args[0][:3].contiguous(), r"Tcw0: expected shape \(4, 4\)"
+        elif fault == "ragged":
+            args[3], match = args[3][:63], r"inv_sigma2: expected shape \(64,\)"
+        elif fault == "non_contiguous":
+            args[1] = args[1].t().contiguous().t()
+            match = "Xw: expected a contiguous tensor"
+        elif fault == "bad_camera":
+            args[5], match = args[5][:4], r"cam: expected shape \(5,\)"
+        elif fault == "negative_rounds":
+            kw, match = dict(rounds=-1), "rounds -1"
+        elif fault == "too_many_edges":
+            n = kernels.POSE_OPT_MAX_EDGES + 1
+            args = [meta(args[0]), torch.empty((n, 3), device="meta"),
+                    torch.empty((n, 3), device="meta"), torch.empty(n, device="meta"),
+                    torch.empty(n, dtype=torch.bool, device="meta"), meta(args[5])]
+            match = f"N <= {kernels.POSE_OPT_MAX_EDGES}"
+        else:
+            args = [meta(a) for a in args]
+            call = lambda *a: kernels.pose_opt_kernel(*a, 4, 10, pose_opt.CHI2_STEREO)
+            match = "expected CUDA tensors, got meta"
+        with pytest.raises(ValueError, match=match):
+            call(*args, **kw)
+        assert kernels.POSE_OPT.launches == 0
+
     def test_image_tables_match_the_sources(self):
         """The by-value image tables as ctypes lays them out are the
         structs of the CUDA sources: 16 entries, the sizes nvcc gives."""
@@ -306,14 +376,35 @@ class TestBuild:
 
     @pytest.mark.parametrize("kernel", kernels.KERNELS, ids=lambda k: k.name)
     def test_source_carries_its_note(self, kernel):
+        """What the kernel replaces (a Pallas kernel, or none and why it was
+        added), what bounds it on the card, what its design does."""
         with open(kernel.source_path) as f:
             text = f.read()
-        pallas_fn = {"fast_score": "fast_score_map_pallas",
-                     "brief_canvas": "brief_descriptors_canvas",
-                     "brief_level": "brief_descriptors_pallas"}[kernel.name]
-        assert "Replaces the TPU kernel" in text and pallas_fn in text
+        replaced = {"fast_score": ("Replaces the TPU kernel", "fast_score_map_pallas"),
+                    "brief_canvas": ("Replaces the TPU kernel",
+                                     "brief_descriptors_canvas"),
+                    "brief_level": ("Replaces the TPU kernel",
+                                    "brief_descriptors_pallas"),
+                    "pose_opt": ("Replaces no TPU kernel", "fori_loop")}[kernel.name]
+        assert all(phrase in text for phrase in replaced)
         assert "What bounds it" in text and "What the design does" in text
         assert 'extern "C"' in text
+
+    def test_pose_opt_binding_matches_the_source(self):
+        """The ctypes argument list of pose_opt's launch function is the C
+        signature's (pointers, ints, the double gate, the stream last), and
+        the largest N the wrapper lets through is the source's."""
+        with open(kernels.POSE_OPT.source_path) as f:
+            text = f.read()
+        params = re.search(r"int pose_opt_launch\(([^)]*)\)", text).group(1)
+        kinds = [("double" if "double" in p else "int") if "*" not in p and
+                 "cudaStream_t" not in p else "ptr" for p in params.split(",")]
+        ctype = {"ptr": kernels.ctypes.c_void_p, "int": kernels.ctypes.c_int,
+                 "double": kernels.ctypes.c_double}
+        assert kernels.POSE_OPT.argtypes == [ctype[k] for k in kinds]
+        threads = int(re.search(r"constexpr int kThreads = (\d+);", text).group(1))
+        per = int(re.search(r"constexpr int kMaxEdgesPerThread = (\d+);", text).group(1))
+        assert kernels.POSE_OPT_MAX_EDGES == threads * per
 
 
 @pytest.mark.cuda
@@ -334,6 +425,52 @@ def test_level_brief_kernel_equals_twin_on_the_card():
     got = kernels.brief_descriptors_level(padded, xy, ang)
     assert kernels.BRIEF_LEVEL.launches == before + 1
     assert torch.equal(got, desc_ops.brief_descriptors(padded, xy, ang))
+
+
+# (case, problem): the cells' 2048 slots with ~40% active and 20% outliers,
+# bench.py's 8000-feature slots beyond them, more edges than shared memory
+# holds (read from device memory), a clean and a noisy small problem, and a
+# frame with fewer than 3 active edges
+POSE_CASES = {
+    "clean300": dict(n=300, noise_px=0.0, pose_err=0.3),
+    "noisy300": dict(n=300, noise_px=0.5, outlier_frac=0.1),
+    "sparse2048": dict(n=2048, noise_px=0.5, outlier_frac=0.2, active_frac=0.4),
+    "dense8192": dict(n=8192, noise_px=0.5, outlier_frac=0.2, active_frac=0.6),
+    "unstaged12000": dict(n=12000, noise_px=0.5, outlier_frac=0.2, active_frac=0.5),
+    "too_few": dict(n=2048, active_frac=0.001),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(POSE_CASES))
+def test_pose_opt_kernel_equals_twin_on_the_card(case):
+    """The kernel against its twin on the same CUDA tensors.  Tolerances:
+    the kernel sums in another order, so the poses agree to float32
+    rounding of a converged LM (entries within 1e-4, rotation and metres);
+    an edge whose twin chi2 lies within 1% of the 7.815 gate may fall on
+    either side, so the masks may differ there alone and ``num_inliers`` by
+    at most their count; chi2 follows the pose (1e-4 m at 4-40 m is under
+    0.01 px, 1e-2 relative on a residual of tens of pixels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the pose_opt kernel runs only on a card")
+    dev = torch.device("cuda", 0)
+    args = pose_opt.synthetic_problem(11, device=dev, **POSE_CASES[case])
+    before = kernels.POSE_OPT.launches
+    got = pose_opt.pose_optimization(*args)
+    torch.cuda.synchronize()
+    assert kernels.POSE_OPT.launches == before + 1
+    want = pose_opt.pose_optimization_ref(*args)
+    assert kernels.POSE_OPT.launches == before + 1
+    assert float((got.Tcw - want.Tcw).abs().max()) < 1e-4
+    near = ((want.chi2 - pose_opt.CHI2_STEREO).abs()
+            <= 0.01 * pose_opt.CHI2_STEREO) & args[4]
+    differ = got.inliers != want.inliers
+    assert not bool((differ & ~near).any())
+    assert abs(int(got.num_inliers) - int(want.num_inliers)) <= int(near.sum())
+    assert int(got.num_inliers) == int(got.inliers.sum())
+    torch.testing.assert_close(got.chi2, want.chi2, rtol=1e-2, atol=1e-2)
+    if case == "too_few":
+        assert int(args[4].sum()) < 3 and torch.equal(got.Tcw, args[0])
 
 
 def test_imports_without_jax():
