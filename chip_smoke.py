@@ -120,7 +120,7 @@
     (|R R^T - I| under 1e-5) and the ATE under the JAX package's gate
     (3 x phase 5's or 0.05 m; 7 x the per-frame run's or 0.25 m;
     tests/test_system.py::TestWindowedTracking).  Prints the ``window.*`` timers, frames/s and the ``retrack:*`` /
-    ``abort:*`` / ``chain:reseed`` counts.
+    ``abort:*`` counts.
 11. Checkpoint: phase 5's map through ``utils/checkpoint.py``
     (``save_map``, ``load_map`` on the card): keyframe and landmark counts,
     poses, positions and observations equal, the covisibility the recount
@@ -1290,9 +1290,9 @@ def run_window(seq, cfg, device, n_frames: int, fed: bool, ate_per_frame: float,
     scanned, per_frame = [], []
     dispatch = _sync_watched(system._dispatch_window, syncs)
 
-    def counted_dispatch(lefts, rights, timestamps, carry=None):
+    def counted_dispatch(lefts, rights, timestamps):
         scanned.append(len(timestamps))
-        return dispatch(lefts, rights, timestamps, carry)
+        return dispatch(lefts, rights, timestamps)
 
     real_track = system.track_stereo
 

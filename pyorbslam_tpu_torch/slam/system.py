@@ -24,8 +24,8 @@ become one of three schedules on one host thread:
   them frame by frame; a frame that needs a keyframe, or whose anchoring
   weakened, is first re-tracked on the device against the current map
   from the features the scan built (``_retrack_window_frame``).
-  ``window_feed`` dispatches window N + 1, its device carry rebased onto
-  the host's corrected pose, before it runs window N's mapping work.
+  ``window_feed`` dispatches window N + 1, seeded with the host's state
+  as window N's commit left it, before it runs window N's mapping work.
 
 A frame that tracks weakly goes through the full per-frame state machine
 (``_track``): motion retry, BoW matching against the reference keyframe
@@ -83,6 +83,36 @@ from pyorbslam_tpu_torch.slam.tracking import (
 from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
+
+# ``System.times`` keys that are sums of stage clocks, not stages: the
+# keyframe side's host time with each stretch counted once (keyframe
+# stages nest: the synchronous mapping runs inside insertion), and the
+# part of it that ran inside a window's commit
+KEYFRAME_SIDE = "keyframe_side"
+WINDOW_COMMIT_KF = "window.commit_kf"
+
+
+class _KeyframeStage(trace.stage):
+    """A keyframe stage's clock (``kf.*``): the outermost one open also
+    adds its time to ``times[KEYFRAME_SIDE]``."""
+
+    __slots__ = ("system",)
+
+    def __init__(self, system, label, sync):
+        super().__init__(system.times, label, system.time_counts, sync)
+        self.system = system
+
+    def __enter__(self):
+        self.system._kf_depth += 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        before = self.times[self.label]
+        super().__exit__(*exc)
+        self.system._kf_depth -= 1
+        if not self.system._kf_depth:
+            self.times[KEYFRAME_SIDE] += self.times[self.label] - before
+        return False
 
 
 def _rigid(T: np.ndarray) -> np.ndarray:
@@ -221,8 +251,6 @@ class System:
         # and is capped by the queue arbitration
         self._mapper_queue = None    # None = idle (per-frame schedules)
         self._pending_window = None  # in-flight window of window_feed
-        self._scan_correction = None  # (raw last scan pose, host pose)
-        self._chain_healthy = True   # raw device chain tracks host chain
         # ---- pipelined per-frame (async) schedule state ----
         self._async_q: list = []     # in-flight dispatch records (<= 1)
         self._defer_maintenance = False  # commit in progress: queue KF work
@@ -233,6 +261,7 @@ class System:
         self.events = deque(maxlen=4096)
         self.times = defaultdict(float)   # per-stage wall clock
         self.time_counts = defaultdict(int)
+        self._kf_depth = 0                # keyframe stages open
 
     def _dev(self, a) -> torch.Tensor:
         """A host array on the device; on CUDA through pinned memory and a
@@ -247,9 +276,12 @@ class System:
         belongs to the stage that launched it; the stages of the
         pipelined schedule (``sync=False``, and everything a pipelined
         commit runs) exist to leave work in flight and are timed on the
-        host alone."""
-        return trace.stage(self.times, label, self.time_counts,
-                           self._stage_wait if sync else None)
+        host alone.  A keyframe stage (``kf.*``) also counts, when no other
+        is open around it, towards ``times[KEYFRAME_SIDE]``."""
+        wait = self._stage_wait if sync else None
+        if label.startswith("kf."):
+            return _KeyframeStage(self, label, wait)
+        return trace.stage(self.times, label, self.time_counts, wait)
 
     def _stage_wait(self):
         if not self._defer_maintenance and self.device.type == "cuda":
@@ -322,7 +354,8 @@ class System:
 
     def flush_async(self):
         """Commit every in-flight pipelined frame."""
-        with trace.span("call.flush"):
+        # the id of the first frame it commits
+        with trace.span("call.flush", self.frame_id + 1):
             while self._async_q:
                 self._commit_chain(self._async_q.pop(0))
             self._run_maintenance_queue()
@@ -459,9 +492,10 @@ class System:
     #   1. COMMIT the in-flight window: read its rows, re-track weak or
     #      keyframe-to-be frames against the current map, insert keyframes
     #      (features + stereo landmarks + BoW registration);
-    #   2. DISPATCH the next window's scan, its device carry REBASED onto
-    #      the host's corrected pose, so the scan runs on a map as fresh as
-    #      its own first frame (the reference's one-keyframe mapping lag);
+    #   2. DISPATCH the next window's scan from the host's state (last
+    #      frame, pose and the velocity of the committed poses, re-tracks
+    #      included), so the scan runs on a map as fresh as its own first
+    #      frame (the reference's one-keyframe mapping lag);
     #   3. run the committed keyframes' MAPPING work (triangulation, fuse,
     #      local BA, loop closing) behind the scan (System.py:58-64); pose
     #      refinements reach the in-flight window through its base
@@ -475,10 +509,33 @@ class System:
         is frozen for the window, the lag the reference's asynchronous
         LocalMapping thread produces.  Until initialized the frames go
         through the per-frame machine.  Returns the W per-frame Tcw."""
+        return self._window_call(self.frame_id + 1, self._track_stereo_window_inner,
+                                 lefts, rights, timestamps)
+
+    def _track_stereo_window_inner(self, lefts, rights, timestamps):
         if self.state != "OK" or self.map.keyframes.n == 0:
             return self._window_bootstrap(lefts, rights, timestamps)
         return self._commit_window(
             self._dispatch_window(lefts, rights, timestamps))
+
+    def _window_call(self, first: int, inner, *args) -> np.ndarray:
+        """A call of the windowed schedule as the root span ``call.window``
+        with ``first``, the id of the first frame the call hands in (the
+        first it commits, for a flush), and the poses it made final
+        (``returned``)."""
+        with trace.span("call.window", first) as sp:
+            out = inner(*args)
+            if sp is not None:
+                sp.args["returned"] = len(out)
+            return out
+
+    def _track_row(self, left, right, timestamp) -> np.ndarray:
+        """One frame of a windowed call through the per-frame machine, as a
+        ``window.row`` span with its own frame id."""
+        with trace.span("window.row", self.frame_id + 1) as sp:
+            if sp is not None:
+                sp.args.update(perframe=1)
+            return self.track_stereo(left, right, timestamp)
 
     def _window_bootstrap(self, lefts, rights, timestamps) -> np.ndarray:
         """Per-frame tracking until the system is initialized (or has
@@ -487,14 +544,14 @@ class System:
         L = len(timestamps)
         poses, i = [], 0
         while i < L and (self.state != "OK" or self.map.keyframes.n == 0):
-            poses.append(self.track_stereo(lefts[i], rights[i], timestamps[i]))
+            poses.append(self._track_row(lefts[i], rights[i], timestamps[i]))
             i += 1
         if L - i >= 3:
             poses.extend(self._commit_window(self._dispatch_window(
                 lefts[i:], rights[i:], timestamps[i:])))
         else:
             for j in range(i, L):
-                poses.append(self.track_stereo(lefts[j], rights[j], timestamps[j]))
+                poses.append(self._track_row(lefts[j], rights[j], timestamps[j]))
         return np.stack(poses)
 
     def window_feed(self, lefts, rights, timestamps) -> np.ndarray:
@@ -508,15 +565,22 @@ class System:
         2-3 m a window at KITTI-like depths).  Faster motion makes scanned
         rows anchor on landmarks their own drifted keyframes created; use
         ``track_stereo_async`` there."""
+        # its frames come after the pending window's
+        pending = self._pending_window
+        first = self.frame_id + 1 + (
+            len(pending["timestamps"]) if pending is not None else 0)
+        return self._window_call(first, self._window_feed_inner,
+                                 lefts, rights, timestamps)
+
+    def _window_feed_inner(self, lefts, rights, timestamps):
         if self.state != "OK" or self.map.keyframes.n == 0:
-            done = self.window_flush()
+            done = self._window_flush_inner()
             boot = self._window_bootstrap(lefts, rights, timestamps)
             return np.concatenate([done, boot]) if len(done) else boot
 
         old = self._pending_window
         self._pending_window = None
         out = np.zeros((0, 4, 4), np.float32)
-        carry = None
         if old is not None:
             self._defer_maintenance = True
             try:
@@ -529,22 +593,12 @@ class System:
                 # frame too
                 self._run_maintenance_queue()
                 return np.concatenate([out, np.stack([
-                    self.track_stereo(lefts[i], rights[i], timestamps[i])
+                    self._track_row(lefts[i], rights[i], timestamps[i])
                     for i in range(len(timestamps))])])
-            if self._chain_healthy:
-                # rebase the device carry onto the corrected pose: the raw
-                # chain's relative motion is kept, its anchor moves to the
-                # host's pose (the velocity is invariant under this
-                # right-multiplication)
-                raw_last, corrected = self._scan_correction
-                M = self._dev(
-                    (np.linalg.inv(raw_last) @ corrected).astype(np.float32))
-                frame_c, _, Tcw_c, Tlw_c = old["carry"]
-                q_lm = self._dev(self.map.landmarks.resolve(self.last_assign))
-                carry = (frame_c, q_lm, Tcw_c @ M, Tlw_c @ M)
-            else:
-                self.events.append("chain:reseed")
-        new = self._dispatch_window(lefts, rights, timestamps, carry=carry)
+        # the scan starts from the host's state as the commit left it: its
+        # last frame, pose and velocity (the motion model of the poses it
+        # committed, re-tracks included)
+        new = self._dispatch_window(lefts, rights, timestamps)
         base_pre = self.Tcw.copy()
         self._pending_window = new
         # the committed keyframes' mapping work runs behind the scan
@@ -556,25 +610,36 @@ class System:
 
     def window_flush(self) -> np.ndarray:
         """Commit the in-flight window, if any; returns its poses."""
+        return self._window_call(self.frame_id + 1, self._window_flush_inner)
+
+    def _window_flush_inner(self) -> np.ndarray:
         pending = self._pending_window
         self._pending_window = None
         if pending is None:
             return np.zeros((0, 4, 4), np.float32)
         if self.state != "OK":
             return np.stack([
-                self.track_stereo(l, r, t) for l, r, t in zip(
+                self._track_row(l, r, t) for l, r, t in zip(
                     pending["lefts"], pending["rights"], pending["timestamps"])])
         return self._commit_window(pending)
 
-    def _dispatch_window(self, lefts, rights, timestamps, carry=None):
-        """Upload one window of stereo pairs and dispatch the scan.
-        ``carry`` (the device tuple of the previous scan) chains windows
-        without waiting for the host.  Host-timed: the scan stays in
-        flight."""
-        with self._t("window.dispatch", sync=False):
-            return self._dispatch_window_inner(lefts, rights, timestamps, carry)
+    def _dispatch_window(self, lefts, rights, timestamps):
+        """Upload one window of stereo pairs and dispatch the scan, seeded
+        with the host's last frame, its landmark assignment, pose and
+        velocity.  Host-timed: the scan stays in flight.  Its span carries
+        the window's first frame id (the frames before it are committed by
+        now) and counts the window's frames, the carried features and the
+        local map's points."""
+        with self._t("window.dispatch", sync=False) as sp:
+            if sp is not None:
+                sp.frame = self.frame_id + 1
+            pending = self._dispatch_window_inner(lefts, rights, timestamps)
+            if sp is not None:
+                sp.args.update(frames=len(timestamps), n_feat=pending["n_feat"],
+                               n_local=pending["n_local"])
+            return pending
 
-    def _dispatch_window_inner(self, lefts, rights, timestamps, carry=None):
+    def _dispatch_window_inner(self, lefts, rights, timestamps):
         W = len(timestamps)
         lm = self.map.landmarks
         local_ids = self._spatial_point_ids(self.Tcw)
@@ -587,36 +652,50 @@ class System:
         images = self._dev(np.stack([
             np.stack([np.asarray(lefts[i]), np.asarray(rights[i])])
             for i in range(W)]))
-        if carry is None:
-            frame0 = self.last_frame
-            q_lm0 = self._dev(lm.resolve(self.last_assign))
-            Tlw0 = self._dev(self.Tcw)
-            Tllw0 = self._dev(
-                (np.linalg.inv(self.velocity) @ self.Tcw).astype(np.float32))
-        else:
-            frame0, q_lm0, Tlw0, Tllw0 = carry
-        packed, frames, carry_out = fused_track_window(
+        frame0 = self.last_frame
+        q_lm0 = self._dev(lm.resolve(self.last_assign))
+        Tlw0 = self._dev(self.Tcw)
+        Tllw0 = self._dev(
+            (np.linalg.inv(self.velocity) @ self.Tcw).astype(np.float32))
+        packed, frames, _ = fused_track_window(
             images, *self._landmark_mirror(), frame0, q_lm0,
             self._dev(p_ids), Tlw0, Tllw0, self.cfg,
+            first_frame=self.frame_id + 1,
         )
         return dict(packed=HostRead(packed),   # the read overlaps the scan
-                    frames=frames, carry=carry_out, frame0=frame0,
+                    frames=frames, frame0=frame0,
                     lefts=lefts, rights=rights, timestamps=timestamps,
                     p_ids=p_ids, n_local=len(local_ids),
                     n_feat=int(q_lm0.shape[0]), base=None)
 
     def _commit_window(self, pending) -> np.ndarray:
-        with self._t("window.commit_total"):
-            return self._commit_window_inner(pending)
+        """:meth:`_commit_window_inner` under the stage clock
+        ``window.commit_total``, whose span carries the first row's frame
+        id and the keyframes inserted (``kf``); the keyframe stages' time
+        inside it is added to ``times[WINDOW_COMMIT_KF]``."""
+        kf_side, n_kfs = self.times[KEYFRAME_SIDE], self.map.keyframes.n
+        with self._t("window.commit_total") as sp:
+            if sp is not None:
+                sp.frame = self.frame_id + 1
+            poses = self._commit_window_inner(pending)
+            if sp is not None:
+                sp.args["kf"] = self.map.keyframes.n - n_kfs
+        self.times[WINDOW_COMMIT_KF] += self.times[KEYFRAME_SIDE] - kf_side
+        return poses
 
     def _commit_window_inner(self, pending) -> np.ndarray:
-        """Commit one scanned window frame by frame.  A healthy row commits
+        """Commit one scanned window frame by frame, each a ``window.row``
+        span with its frame id.  A healthy row commits
         its scan pose.  A frame that needs a keyframe, or whose anchoring
         fell below ``window_commit_min_inliers``, is re-tracked on the
         device against the current map from the features the scan built.
         Only a frame still weak after that (true tracking loss) hands the
         rest of the window to the per-frame machine and its
-        relocalization ladder."""
+        relocalization ladder.  The commit's span counts the rows
+        (``frames``), the re-tracks (``retracked``), those the 28 px tier
+        saved (``rescued_28px``) and the rows handed to the per-frame
+        machine (``aborted``)."""
+        commit_sp = trace.current()     # the commit's
         timestamps = pending["timestamps"]
         lefts, rights = pending["lefts"], pending["rights"]
         p_ids = pending["p_ids"]
@@ -629,157 +708,163 @@ class System:
         frames = pending["frames"]
 
         base_raw, base_corr = pending["base"] or (None, None)
-        raw_last = out[W - 1, 5:21].copy().view(np.float32).reshape(4, 4)
         trk = self.cfg.tracking
         poses = []
         aborted = None
+        retracks = rescued = 0
+
+        def retrack(*args, **kwargs):
+            nonlocal retracks, rescued
+            re, wide = self._retrack_window_frame(*args, **kwargs)
+            retracks += 1
+            rescued += re is not None and wide
+            return re
+
         self._mapper_queue = 0   # window commit = mapper busy
         for i in range(W):
-            row = out[i]
-            raw = row[5:21].copy().view(np.float32).reshape(4, 4)
-            frame_i = frames[i]
-            frame_prev = pending["frame0"] if i == 0 else frames[i - 1]
-            retracked = False
-            scan_weak = (int(row[0]) < 20 or int(row[1]) < 20
-                         or not np.isfinite(raw).all())
+            with trace.span("window.row", self.frame_id + 1) as row_sp:
+                retracks_before = retracks
+                row = out[i]
+                raw = row[5:21].copy().view(np.float32).reshape(4, 4)
+                frame_i = frames[i]
+                frame_prev = pending["frame0"] if i == 0 else frames[i - 1]
+                retracked = False
+                scan_weak = (int(row[0]) < 20 or int(row[1]) < 20
+                             or not np.isfinite(raw).all())
 
-            def adopt_retrack(re):
-                nonlocal base_raw, base_corr
-                (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
-                 p_visible, tracked_close, non_tracked_close) = re
-                # the re-tracked pose leaves the raw scan chain: fold the
-                # delta into the base correction so later rows follow.  A
-                # non-finite raw (a diverged scan pose) never becomes the
-                # base: later rows then rebase off the last finite one
-                if np.isfinite(raw).all():
-                    base_raw = raw.copy()
-                    base_corr = Tcw_i.copy()
-                return (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
-                        p_visible, tracked_close, non_tracked_close,
-                        int((p_ids_i >= 0).sum()))
+                def adopt_retrack(re):
+                    nonlocal base_raw, base_corr
+                    (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
+                     p_visible, tracked_close, non_tracked_close) = re
+                    # the re-tracked pose leaves the raw scan chain: fold the
+                    # delta into the base correction so later rows follow.  A
+                    # non-finite raw (a diverged scan pose) never becomes the
+                    # base: later rows then rebase off the last finite one
+                    if np.isfinite(raw).all():
+                        base_raw = raw.copy()
+                        base_corr = Tcw_i.copy()
+                    return (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
+                            p_visible, tracked_close, non_tracked_close,
+                            int((p_ids_i >= 0).sum()))
 
-            if scan_weak:
-                # motion tracking collapsed mid-scan (often a stale map in
-                # the pipelined schedule): re-anchor on the device against
-                # the current map; only a failed re-track falls back to the
-                # per-frame rescue
-                self.events.append("retrack:scan_weak")
-                re = self._retrack_window_frame(frame_i, frame_prev)
-                if re is None:
-                    aborted = i
-                    self.events.append("abort:scan_weak")
-                    break
-                (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
-                 p_visible, tracked_close, non_tracked_close,
-                 n_local_i) = adopt_retrack(re)
-                retracked = True
-            else:
-                n_matches_i = int(row[0])
-                n_inliers = int(row[2])
-                assign = lm.resolve(row[21: 21 + N])
-                assign = np.where(
-                    (assign >= 0) & lm.alive[np.maximum(assign, 0)],
-                    assign, -1)
-                p_visible = unpack_bool_np(row[21 + N: 21 + N + P // 32], P)
-                if base_raw is None:
-                    Tcw_i = raw
-                else:
-                    # a singular base degrades to the per-frame rescue
-                    # instead of aborting the whole commit
-                    try:
-                        Tcw_i = raw @ np.linalg.inv(base_raw) @ base_corr
-                    except np.linalg.LinAlgError:
+                if scan_weak:
+                    # motion tracking collapsed mid-scan (often a stale map in
+                    # the pipelined schedule): re-anchor on the device against
+                    # the current map; only a failed re-track falls back to the
+                    # per-frame rescue
+                    self.events.append("retrack:scan_weak")
+                    re = retrack(frame_i, frame_prev)
+                    if re is None:
                         aborted = i
-                        self.events.append("abort:singular_base")
+                        self.events.append("abort:scan_weak")
                         break
-                Tcw_i = np.ascontiguousarray(Tcw_i, dtype=np.float32)
-                tracked_close = int(row[3])
-                non_tracked_close = int(row[4])
-                n_local_i = local_n
-                p_vis_ids = p_ids
+                    (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
+                     p_visible, tracked_close, non_tracked_close,
+                     n_local_i) = adopt_retrack(re)
+                    retracked = True
+                else:
+                    n_matches_i = int(row[0])
+                    n_inliers = int(row[2])
+                    assign = lm.resolve(row[21: 21 + N])
+                    assign = np.where(
+                        (assign >= 0) & lm.alive[np.maximum(assign, 0)],
+                        assign, -1)
+                    p_visible = unpack_bool_np(row[21 + N: 21 + N + P // 32], P)
+                    if base_raw is None:
+                        Tcw_i = raw
+                    else:
+                        # a singular base degrades to the per-frame rescue
+                        # instead of aborting the whole commit
+                        try:
+                            Tcw_i = raw @ np.linalg.inv(base_raw) @ base_corr
+                        except np.linalg.LinAlgError:
+                            aborted = i
+                            self.events.append("abort:singular_base")
+                            break
+                    Tcw_i = np.ascontiguousarray(Tcw_i, dtype=np.float32)
+                    tracked_close = int(row[3])
+                    non_tracked_close = int(row[4])
+                    n_local_i = local_n
+                    p_vis_ids = p_ids
 
-            # does this frame need a keyframe, or did its anchoring weaken
-            # below the commit bar?  The mapper is the reference's async
-            # LocalMapping: idle once its per-keyframe latency has elapsed
-            ks = self.map.keyframes
-            needs_kf = need_new_keyframe(
-                n_inliers=int((assign >= 0).sum()),
-                n_ref_matches=self._ref_kf_tracked_points(),
-                n_kfs=int(ks.alive[: ks.n].sum()),
-                frame_id=self.frame_id + 1,
-                last_kf_frame=self.last_kf_frame,
-                last_reloc_frame=self.last_reloc_frame,
-                tracked_close=tracked_close,
-                non_tracked_close=non_tracked_close,
-                min_frames=trk.min_frames, max_frames=trk.max_frames,
-                mapper_idle=(self.frame_id + 1 >= self.last_kf_frame
-                             + trk.mapper_latency_frames),
-                queue_len=self._mapper_queue,
-            )
-            if not retracked and (
-                    needs_kf or n_inliers < self.window_commit_min_inliers):
-                # a keyframe-to-be is re-anchored against the current map
-                # before insertion (its landmarks seed what follows); the
-                # same dispatch brings its insertion snapshot and BoW
-                self.events.append(
-                    "retrack:needs_kf" if needs_kf else "retrack:weak_anchor")
-                re = self._retrack_window_frame(
-                    frame_i, frame_prev, want_snapshot=needs_kf)
-                if re is None:
-                    # weak even against the current map: the per-frame
-                    # machine's full rescue ladder takes this stretch
-                    aborted = i
-                    self.events.append("abort:retrack_failed")
-                    break
-                (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
-                 p_visible, tracked_close, non_tracked_close,
-                 n_local_i) = adopt_retrack(re)
+                # does this frame need a keyframe, or did its anchoring weaken
+                # below the commit bar?  The mapper is the reference's async
+                # LocalMapping: idle once its per-keyframe latency has elapsed
+                ks = self.map.keyframes
+                needs_kf = need_new_keyframe(
+                    n_inliers=int((assign >= 0).sum()),
+                    n_ref_matches=self._ref_kf_tracked_points(),
+                    n_kfs=int(ks.alive[: ks.n].sum()),
+                    frame_id=self.frame_id + 1,
+                    last_kf_frame=self.last_kf_frame,
+                    last_reloc_frame=self.last_reloc_frame,
+                    tracked_close=tracked_close,
+                    non_tracked_close=non_tracked_close,
+                    min_frames=trk.min_frames, max_frames=trk.max_frames,
+                    mapper_idle=(self.frame_id + 1 >= self.last_kf_frame
+                                 + trk.mapper_latency_frames),
+                    queue_len=self._mapper_queue,
+                )
+                if not retracked and (
+                        needs_kf or n_inliers < self.window_commit_min_inliers):
+                    # a keyframe-to-be is re-anchored against the current map
+                    # before insertion (its landmarks seed what follows); the
+                    # same dispatch brings its insertion snapshot and BoW
+                    self.events.append(
+                        "retrack:needs_kf" if needs_kf else "retrack:weak_anchor")
+                    re = retrack(frame_i, frame_prev, want_snapshot=needs_kf)
+                    if re is None:
+                        # weak even against the current map: the per-frame
+                        # machine's full rescue ladder takes this stretch
+                        aborted = i
+                        self.events.append("abort:retrack_failed")
+                        break
+                    (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
+                     p_visible, tracked_close, non_tracked_close,
+                     n_local_i) = adopt_retrack(re)
 
-            self.frame_id += 1
-            vis_ids = p_vis_ids[p_visible[: len(p_vis_ids)]]
-            vis_ids = vis_ids[vis_ids >= 0]
-            lm.visible[vis_ids] += 1
-            found_ids = np.unique(assign[assign >= 0])
-            lm.found[found_ids] += 1
-            lm.visible[found_ids] += 1
+                self.frame_id += 1
+                vis_ids = p_vis_ids[p_visible[: len(p_vis_ids)]]
+                vis_ids = vis_ids[vis_ids >= 0]
+                lm.visible[vis_ids] += 1
+                found_ids = np.unique(assign[assign >= 0])
+                lm.found[found_ids] += 1
+                lm.visible[found_ids] += 1
 
-            self.state = "OK" if n_inliers >= 20 else "MARGINAL"
-            # a committed pose is rigid.  A scanned row composed with the
-            # base correction is not quite, and the device treats every pose
-            # it is given as rigid (``se3.inverse`` transposes): the next
-            # window's velocity seed and the VO points then carry the
-            # defect, and it grows window by window until the scan loses
-            # track (ROADMAP queue 3, F4)
-            self.Tcw = _rigid(Tcw_i)
-            pre_kf_Tcw = self.Tcw.copy()
-            self._finish_track(
-                frame_i, assign, n_matches_i, n_inliers,
-                tracked_close, non_tracked_close, n_local_i, timestamps[i],
-            )
-            if not np.allclose(self.Tcw, pre_kf_Tcw, atol=1e-7):
-                # local BA moved the pose: later rows follow the move
-                base_raw = raw.copy()
-                base_corr = self.Tcw.copy()
-            self.trajectory.append(self.Tcw.copy())
-            self._append_frame_ref()
-            poses.append(self.Tcw.copy())
+                self.state = "OK" if n_inliers >= 20 else "MARGINAL"
+                # a committed pose is rigid.  A scanned row composed with the
+                # base correction is not quite, and the device treats every pose
+                # it is given as rigid (``se3.inverse`` transposes): the next
+                # window's velocity seed and the VO points then carry the
+                # defect, and it grows window by window until the scan loses
+                # track (ROADMAP queue 3, F4)
+                self.Tcw = _rigid(Tcw_i)
+                pre_kf_Tcw = self.Tcw.copy()
+                self._finish_track(
+                    frame_i, assign, n_matches_i, n_inliers,
+                    tracked_close, non_tracked_close, n_local_i, timestamps[i],
+                )
+                if not np.allclose(self.Tcw, pre_kf_Tcw, atol=1e-7):
+                    # local BA moved the pose: later rows follow the move
+                    base_raw = raw.copy()
+                    base_corr = self.Tcw.copy()
+                self.trajectory.append(self.Tcw.copy())
+                self._append_frame_ref()
+                poses.append(self.Tcw.copy())
+                if row_sp is not None:
+                    row_sp.args.update(perframe=0,
+                                       retracked=retracks - retracks_before)
         if aborted is not None:
             # true weakness: the per-frame machine (BoW fallback, wide
             # rescue, relocalization) takes the rest of the window
             for i in range(aborted, W):
                 poses.append(
-                    self.track_stereo(lefts[i], rights[i], timestamps[i]))
+                    self._track_row(lefts[i], rights[i], timestamps[i]))
+        if commit_sp is not None:
+            commit_sp.args.update(
+                frames=W, retracked=retracks, rescued_28px=rescued,
+                aborted=0 if aborted is None else W - aborted)
         self._mapper_queue = None   # mapper idle again
-        # after an abort the per-frame machine took the tail, so the device
-        # chain reseeds from the host's state; a non-finite raw chain end
-        # (pose optimization diverged on garbage matches) is never
-        # inverted for a rebase
-        det = float(np.linalg.det(raw_last)) \
-            if np.isfinite(raw_last).all() else 0.0
-        self._chain_healthy = aborted is None and 0.5 < abs(det) < 2.0
-        # the raw device pose of the window's last frame against the
-        # host's corrected one: the next dispatch rebases its carry by this
-        self._scan_correction = (raw_last, self.Tcw.copy())
         return np.stack(poses)
 
     def _retrack_window_frame(self, frame_i, frame_prev,
@@ -789,12 +874,17 @@ class System:
         the features the scan built: the re-track before an in-window
         keyframe insertion.  With ``want_snapshot`` the same dispatch also
         returns the insertion snapshot and BoW vectors (one read, not two).
-        Returns (n_matches, n_inliers, Tcw, assign, p_ids, p_visible,
-        tracked_close, non_tracked_close), or None when weak.  Both
-        attempts read back at once, as the synchronous schedule does."""
-        with self._t("window.retrack"):
-            return self._retrack_window_frame_inner(
+        Returns ((n_matches, n_inliers, Tcw, assign, p_ids, p_visible,
+        tracked_close, non_tracked_close), or None when weak; whether the
+        28 px tier ran).  Both attempts read back at once, as the
+        synchronous schedule does.  Its span counts the search radius it
+        ended with (``th``) and whether it held (``ok``)."""
+        with self._t("window.retrack") as sp:
+            re, wide = self._retrack_window_frame_inner(
                 frame_i, frame_prev, want_snapshot)
+            if sp is not None:
+                sp.args.update(th=28.0 if wide else 7.0, ok=int(re is not None))
+            return re, wide
 
     def _retrack_window_frame_inner(self, frame_i, frame_prev,
                                     want_snapshot: bool):
@@ -825,12 +915,13 @@ class System:
                 or int(packed[2]) < 20
 
         packed = attempt(7.0)
-        if weak(packed):
+        wide = weak(packed)
+        if wide:
             # the wide-radius rescue (the per-frame ladder's 28 px tier,
             # Tracking.py's 2*th retry) before giving up on the frame
             packed = attempt(28.0)
         if weak(packed):
-            return None
+            return None, wide
         N = q_lm.shape[0]
         if want_snapshot:
             buf = packed[21 + N + len(p_ids):]
@@ -846,7 +937,7 @@ class System:
         p_visible = packed[21 + N: 21 + N + len(p_ids)].astype(bool)
         return (int(packed[0]), int(packed[2]),
                 np.ascontiguousarray(Tcw, np.float32), assign, p_ids,
-                p_visible, int(packed[3]), int(packed[4]))
+                p_visible, int(packed[3]), int(packed[4])), wide
 
     def corrected_trajectory(self) -> np.ndarray:
         """Per-frame Tcw with all keyframe corrections applied.  Frames

@@ -438,11 +438,14 @@ def fused_track_window(
     Tlw0: torch.Tensor,         # (4, 4) last frame pose
     Tllw0: torch.Tensor,        # (4, 4) pose before that (velocity seed)
     cfg: SlamConfig,
+    first_frame: Optional[int] = None,
 ):
     """Track a window of W frames with no host involvement: a loop over
     the frames carries (previous features, landmark assignment, pose pair)
     on the device, each step the chain step's frame build and tracking
     core with the constant-velocity prediction formed on the device.
+    Each step is a ``window.step`` span with its frame's id, counted from
+    ``first_frame`` (None: the open span's).
 
     The local map (mirror + ``p_ids``) is frozen for the window, as the
     reference's asynchronous LocalMapping leaves tracking on a lagging
@@ -451,25 +454,26 @@ def fused_track_window(
     [stats 5 | Tcw 16 | assign N | p_visible P/32].
 
     Returns (stacked rows (W, 21 + N + P/32), the W built frames, the
-    final carry (frame, assign, Tcw, Tlw)); the carry stays on the device
-    so the next window can be dispatched before the host reads this one.
+    final carry (frame, assign, Tcw, Tlw), on the device).
     """
     use_f32_matmuls()
     carry = (last_frame, q_lm0, Tlw0, Tllw0)
     rows, frames = [], []
-    for lr in images:
-        frame_prev, q_lm, Tlw, Tllw = carry
-        frame = build_stereo_frame(lr[0], lr[1], cfg)
-        vel = Tlw @ se3.inverse(Tllw)
-        packed, Tcw, assign = _fused_track_core(
-            frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-            q_lm, frame_prev, p_ids, vel @ Tlw, Tlw, cfg,
-        )
-        n_core = 21 + assign.shape[0]
-        rows.append(torch.cat([packed[:n_core],
-                               _bitpack_bool(packed[n_core:] != 0)]))
-        frames.append(frame)
-        carry = (frame, assign, Tcw, Tlw)
+    for k, lr in enumerate(images):
+        with trace.span("window.step",
+                        None if first_frame is None else first_frame + k):
+            frame_prev, q_lm, Tlw, Tllw = carry
+            frame = build_stereo_frame(lr[0], lr[1], cfg)
+            vel = Tlw @ se3.inverse(Tllw)
+            packed, Tcw, assign = _fused_track_core(
+                frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
+                q_lm, frame_prev, p_ids, vel @ Tlw, Tlw, cfg,
+            )
+            n_core = 21 + assign.shape[0]
+            rows.append(torch.cat([packed[:n_core],
+                                   _bitpack_bool(packed[n_core:] != 0)]))
+            frames.append(frame)
+            carry = (frame, assign, Tcw, Tlw)
     return torch.stack(rows), frames, carry
 
 

@@ -1,13 +1,16 @@
 """Where a frame of ``System.track_stereo`` goes on one NVIDIA GPU.
 
     python3 -m pyorbslam_tpu_torch.tools.profile_system [--frames 16] [--warm 8]
-                                                        [--pipelined]
+        [--pipelined | --window W] [--width 1241 --height 376]
 
 Runs the port's ``System`` (default configuration, loop closing on) over
 the first frames of the 1241x376 / 2000-feature synthetic sequence that
-``chip_smoke.py`` uses, in fresh ``System``s; frames after ``--warm``
-count.  With ``--pipelined`` every run goes through
-``System.track_stereo_async``.
+``chip_smoke.py`` uses (another image size with ``--width`` /
+``--height``), in fresh ``System``s; frames after ``--warm`` count.  With
+``--pipelined`` every run goes through ``System.track_stereo_async``; with
+``--window W`` through ``System.window_feed`` in windows of W frames (the
+warm frames and the measured ones each end with ``window_flush``; a
+``--warm`` that W divides keeps every window whole).
 
 1. **Spans.**  A run with the program's span recorder
    (``utils/trace.py``) on: wall ms a frame, and its spans by name:
@@ -52,14 +55,14 @@ OUTSIDE = "outside"        # no program span open
 UNMATCHED = "unmatched"    # a kernel with no launch record in the trace
 
 
-def make_run(n_frames: int):
-    seq = generate_sequence(n_frames=n_frames, width=WIDTH, height=HEIGHT,
+def make_run(n_frames: int, width: int = WIDTH, height: int = HEIGHT):
+    seq = generate_sequence(n_frames=n_frames, width=width, height=height,
                             trajectory="straight", speed=0.8, seed=3)
     cfg = SlamConfig(
         camera=CameraConfig(
             fx=float(seq.K[0, 0]), fy=float(seq.K[1, 1]),
             cx=float(seq.K[0, 2]), cy=float(seq.K[1, 2]),
-            width=WIDTH, height=HEIGHT, bf=seq.bf, th_depth=40.0),
+            width=width, height=height, bf=seq.bf, th_depth=40.0),
         orb=OrbConfig(n_features=N_FEATURES))
     return seq, cfg
 
@@ -155,18 +158,29 @@ def device_events(events):
 
 
 def drive(seq, cfg, device, warm: int, pipelined: bool,
-          profiler: bool = False) -> dict:
+          profiler: bool = False, window: int = 0) -> dict:
     """One fresh ``System`` over the sequence; the frames after ``warm``
-    measured (with ``pipelined`` flushed inside the window, so every
-    measured frame's work is in it)."""
+    measured (with ``pipelined`` or ``window`` flushed inside the window,
+    so every measured frame's work is in it)."""
     from torch.profiler import ProfilerActivity, profile
 
     sysm = new_system(cfg, device)
-    track = sysm.track_stereo_async if pipelined else sysm.track_stereo
     n = seq.left.shape[0]
-    for i in range(warm):
-        track(seq.left[i], seq.right[i], seq.timestamps[i])
-    sysm.flush_async()
+
+    def feed(lo: int, hi: int):
+        """Frames ``lo`` to ``hi`` through the schedule, then the flush."""
+        if window:
+            for i in range(lo, hi, window):
+                j = min(i + window, hi)
+                sysm.window_feed(seq.left[i:j], seq.right[i:j], seq.timestamps[i:j])
+            sysm.window_flush()
+            return
+        track = sysm.track_stereo_async if pipelined else sysm.track_stereo
+        for i in range(lo, hi):
+            track(seq.left[i], seq.right[i], seq.timestamps[i])
+        sysm.flush_async()
+
+    feed(0, warm)
     torch.cuda.synchronize()
     kfs0 = sysm.map.keyframes.n
     trace.drain()
@@ -175,9 +189,7 @@ def drive(seq, cfg, device, warm: int, pipelined: bool,
         trace.enable()
         try:
             w0, t0 = time.time_ns(), time.perf_counter()
-            for i in range(warm, n):
-                track(seq.left[i], seq.right[i], seq.timestamps[i])
-            sysm.flush_async()
+            feed(warm, n)
             torch.cuda.synchronize()
             wall, w1 = time.perf_counter() - t0, time.time_ns()
         finally:
@@ -245,8 +257,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
-    ap.add_argument("--pipelined", action="store_true",
-                    help="run System.track_stereo_async instead of track_stereo")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--pipelined", action="store_true",
+                      help="run System.track_stereo_async instead of track_stereo")
+    mode.add_argument("--window", type=int, default=0, metavar="W",
+                      help="run System.window_feed in windows of W frames")
+    ap.add_argument("--width", type=int, default=WIDTH)
+    ap.add_argument("--height", type=int, default=HEIGHT)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_system needs a CUDA device; none is available")
@@ -259,14 +276,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    seq, cfg = make_run(args.frames)
-    run = drive(seq, cfg, device, args.warm, args.pipelined)
+    seq, cfg = make_run(args.frames, args.width, args.height)
+    run = drive(seq, cfg, device, args.warm, args.pipelined, window=args.window)
     spans = span_table(run["drained"], run["frames"])
-    print(f"recorder on, frames {args.warm}-{args.frames - 1}"
-          f"{' (pipelined schedule)' if args.pipelined else ''}: "
-          f"{run['ms_per_frame']:.1f} ms/frame", flush=True)
+    schedule = (f" (windows of {args.window})" if args.window else
+                " (pipelined schedule)" if args.pipelined else "")
+    print(f"recorder on, frames {args.warm}-{args.frames - 1}{schedule} at "
+          f"{args.width}x{args.height}: {run['ms_per_frame']:.1f} ms/frame", flush=True)
     prof = profiled(drive(seq, cfg, device, args.warm, args.pipelined,
-                          profiler=True))
+                          profiler=True, window=args.window))
     print(f"profiler (device only, recorder on): {prof['launches_per_frame']:.0f} "
           f"launches/frame, {prof['kernel_ms_per_frame']:.2f} ms kernel time/frame, "
           f"busy {prof['busy_ms_per_frame']:.2f} ms of {prof['wall_ms_per_frame']:.1f} "
@@ -285,8 +303,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"  {k['ms_per_frame']:.3f} ms/frame  {k['launches_per_frame']:.0f}x  "
               f"{k['name']}", flush=True)
     print(json.dumps(dict(card=smi, device=torch.cuda.get_device_name(0),
-                          pipelined=args.pipelined,
-                          ms_per_frame=run["ms_per_frame"], spans=spans, profiler=prof)))
+                          pipelined=args.pipelined, window=args.window,
+                          size=[args.width, args.height],
+                          ms_per_frame=run["ms_per_frame"], spans=spans,
+                          frameless_spans=sum(s.frame < 0 for s in run["drained"].spans),
+                          profiler=prof)))
 
 
 if __name__ == "__main__":

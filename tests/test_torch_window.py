@@ -261,7 +261,7 @@ class TestCarriedSchedules:
         assert len(port.trajectory) == len(jsys.trajectory) == N_CARRY + 4
         assert port.time_counts["window.dispatch"] == 1
         assert port.time_counts["window.commit_total"] == 1
-        assert port._mapper_queue is None and port._chain_healthy
+        assert port._mapper_queue is None and port._pending_window is None
 
     def test_window_feed_and_flush(self, schedules):
         """Two feeds and a flush from the carried state: the first feed
