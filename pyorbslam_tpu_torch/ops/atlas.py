@@ -119,11 +119,12 @@ def atlas_layout(
     )
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _layout_tensors(layout_args: tuple, device: torch.device):
     """A layout's static arrays on ``device`` (interior mask, candidate
     index and validity), uploaded once per layout and device through
-    pinned memory (no wait for the work queued before)."""
+    pinned memory (no wait for the work queued before), and never
+    evicted: a captured frontend graph reads them by address."""
     layout = atlas_layout(*layout_args)
     return (
         upload(layout.interior16, device),

@@ -236,6 +236,13 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+def count_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the counters: a replayed
+    CUDA graph launches its kernels without their wrappers."""
+    for k in KERNELS:
+        k.launches += counts.get(k.name, 0)
+
+
 def _check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                 device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype
@@ -338,7 +345,7 @@ def brief_level_gather(padded_blurred: torch.Tensor, xy: torch.Tensor,
     return _brief_gather(padded_blurred, xy, cos, sin, border=desc_ops.BORDER)
 
 
-@lru_cache(maxsize=4)
+@lru_cache(maxsize=None)   # never evicted: a captured frontend reads it
 def _pattern_on(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(desc_ops.brief_pattern(), dtype=torch.float32,
                            device=device).contiguous()

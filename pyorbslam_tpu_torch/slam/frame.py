@@ -5,16 +5,25 @@ One call builds a fixed-shape SoA :class:`StereoFrame` on the images'
 device.  The reference's 64x48 feature grid exists only to make CPU
 radius queries O(1); the projection matchers compute full candidate
 masks instead, so no grid is built.
+
+The body (:func:`stereo_frame_body`) is ~1,150 small launches a frame at
+2000 features, so on a CUDA device :func:`build_stereo_frame` replays it
+as one CUDA graph: the body runs eagerly on the first call of each
+:func:`graph_key`, is then captured, and later calls copy their images
+into the graph's inputs, replay it and clone its outputs.  The same
+kernels run with the same launch parameters, so a replay is bit-equal to
+the eager body.  CPU tensors always take the eager body.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.config import SlamConfig
+from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.ops import pyramid as pyr_ops
 from pyorbslam_tpu_torch.ops import stereo as stereo_ops
 from pyorbslam_tpu_torch.ops.atlas import extract_features_atlas
@@ -42,12 +51,85 @@ class StereoFrame(NamedTuple):
         return self.xy.shape[0]
 
 
-@trace.spanned("track.frontend")
 def build_stereo_frame(
     left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig
 ) -> StereoFrame:
     """left/right: (H, W) images (u8 or float32 in [0, 255]) on the device
-    that runs the frame."""
+    that runs the frame.  A ``track.frontend`` span whose ``graph`` is 1
+    when the call replayed a captured graph, 0 when it ran the body."""
+    with trace.span("track.frontend") as sp:
+        key = graph_key(left, right, cfg) if left.device.type == "cuda" else None
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            frame = stereo_frame_body(left, right, cfg)
+            if key is not None:
+                _GRAPHS[key] = FrontendGraph(left, right, cfg)
+        else:
+            frame = graph(left, right)
+        if sp is not None:
+            sp.args["graph"] = int(graph is not None)
+    return frame
+
+
+def graph_key(left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig) -> tuple:
+    """What one captured frontend is made for: the device, both images'
+    shape and dtype, and every setting :func:`stereo_frame_body` reads
+    (all of ``cfg.orb``, ``bf`` and ``fx``, the two descriptor
+    thresholds)."""
+    return (left.device, left.shape, left.dtype, right.shape, right.dtype,
+            cfg.orb, cfg.camera.bf, cfg.camera.fx,
+            cfg.tracking.th_high, cfg.tracking.th_low)
+
+
+class FrontendGraph:
+    """:func:`stereo_frame_body` captured as one CUDA graph in its own
+    memory pool: the static images it reads, the :class:`StereoFrame` it
+    writes, and the hand-written kernel launches it holds.  Every tensor
+    it reads outside its pool (the images, the cached device constants)
+    lives as long as the process.
+
+    Capture after an eager call of the body on the same key, which fills
+    the device constants and the allocator; a ``track.frontend_capture``
+    span with the images' size."""
+
+    def __init__(self, left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig):
+        with trace.span("track.frontend_capture") as sp, \
+                torch.cuda.device(left.device):
+            if sp is not None:
+                sp.args.update(height=left.shape[0], width=left.shape[1])
+            self.left = torch.empty(left.shape, dtype=left.dtype, device=left.device)
+            self.right = torch.empty(right.shape, dtype=right.dtype, device=right.device)
+            self.graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            # thread_local: another thread (the live viewer's) may call CUDA
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = stereo_frame_body(self.left, self.right, cfg)
+            self.launches = {name: n - before[name]
+                             for name, n in kernels.launch_counts().items()}
+            # the capture enqueued nothing: its wrappers' counts come off again
+            kernels.count_launches({name: -n for name, n in self.launches.items()})
+
+    def __call__(self, left: torch.Tensor, right: torch.Tensor) -> StereoFrame:
+        """Replay on the images, on the current stream.  The outputs are
+        fresh tensors: callers keep frames across later replays."""
+        with torch.cuda.device(self.left.device):
+            self.left.copy_(left)
+            self.right.copy_(right)
+            self.graph.replay()
+            kernels.count_launches(self.launches)
+            return StereoFrame(*(t.clone() for t in self.out))
+
+
+# every captured frontend of the process, by graph_key
+_GRAPHS: Dict[tuple, FrontendGraph] = {}
+
+
+def stereo_frame_body(
+    left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig
+) -> StereoFrame:
+    """The frontend as eager launches: pyramids, ORB extraction of both
+    images, stereo matching.  No host read and no upload, so a CUDA graph
+    can capture it."""
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     orb = cfg.orb

@@ -15,7 +15,10 @@ warm frames and the measured ones each end with ``window_flush``; a
 1. **Spans.**  A run with the program's span recorder
    (``utils/trace.py``) on: wall ms a frame, and its spans by name:
    calls, host ms a frame (a span's time holds the spans inside it) and
-   the means of their counters.
+   the means of their counters; and ``frontend``: the share of the
+   measured ``track.frontend`` spans that replayed the frontend's CUDA
+   graph (``graph`` = 1), and the ``track.frontend_capture`` spans of the
+   warm frames and of the measured ones.
 2. **Profiler.**  One more run with the recorder on and ``torch.profiler``
    recording the device's activity alone: launches, kernel time and busy
    time a frame (the union of the device's operation intervals, so
@@ -180,10 +183,15 @@ def drive(seq, cfg, device, warm: int, pipelined: bool,
             track(seq.left[i], seq.right[i], seq.timestamps[i])
         sysm.flush_async()
 
-    feed(0, warm)
-    torch.cuda.synchronize()
-    kfs0 = sysm.map.keyframes.n
     trace.drain()
+    trace.enable()
+    try:
+        feed(0, warm)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    kfs0 = sysm.map.keyframes.n
+    warm_spans = trace.drain().spans
     with profile(activities=[ProfilerActivity.CUDA]) if profiler \
             else contextlib.nullcontext() as prof:
         trace.enable()
@@ -196,7 +204,7 @@ def drive(seq, cfg, device, warm: int, pipelined: bool,
             trace.disable()
     frames = n - warm
     return dict(frames=frames, keyframes=sysm.map.keyframes.n - kfs0,
-                ms_per_frame=1e3 * wall / frames,
+                ms_per_frame=1e3 * wall / frames, warm_spans=warm_spans,
                 drained=trace.drain(), window=(w0, w1),
                 events=prof.profiler.kineto_results.events() if prof else None)
 
@@ -214,6 +222,22 @@ def span_table(drained: trace.Drained, frames: int) -> dict:
                        host_ms_per_frame=r["host_ms"] / frames,
                        counters={k: sum(v) / len(v) for k, v in r["args"].items()})
             for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["host_ms"])}
+
+
+def frontend_summary(warm_spans: List[trace.Span],
+                     spans: List[trace.Span]) -> dict:
+    """How often the frontend replayed its CUDA graph: the measured
+    ``track.frontend`` spans, the share of them with ``graph`` = 1 (None
+    without one), and the ``track.frontend_capture`` spans of the warm
+    frames and of the measured ones."""
+    graph = [s.args.get("graph", 0) for s in spans if s.name == "track.frontend"]
+
+    def captures(of):
+        return sum(s.name == "track.frontend_capture" for s in of)
+
+    return dict(spans=len(graph),
+                graph_share=sum(graph) / len(graph) if graph else None,
+                captures_warm=captures(warm_spans), captures_measured=captures(spans))
 
 
 def profiled(run: dict, top_n: int = 10) -> dict:
@@ -283,6 +307,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                 " (pipelined schedule)" if args.pipelined else "")
     print(f"recorder on, frames {args.warm}-{args.frames - 1}{schedule} at "
           f"{args.width}x{args.height}: {run['ms_per_frame']:.1f} ms/frame", flush=True)
+    frontend = frontend_summary(run["warm_spans"], run["drained"].spans)
+    print(f"frontend: {frontend['spans']} track.frontend spans measured, graph "
+          f"replayed in a share of {frontend['graph_share']}; captures: "
+          f"{frontend['captures_warm']} warm, {frontend['captures_measured']} "
+          f"measured", flush=True)
     prof = profiled(drive(seq, cfg, device, args.warm, args.pipelined,
                           profiler=True, window=args.window))
     print(f"profiler (device only, recorder on): {prof['launches_per_frame']:.0f} "
@@ -306,6 +335,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                           pipelined=args.pipelined, window=args.window,
                           size=[args.width, args.height],
                           ms_per_frame=run["ms_per_frame"], spans=spans,
+                          frontend=frontend,
                           frameless_spans=sum(s.frame < 0 for s in run["drained"].spans),
                           profiler=prof)))
 

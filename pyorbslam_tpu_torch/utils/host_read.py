@@ -45,7 +45,7 @@ class HostRead:
         return self._buf.numpy()
 
 
-@functools.lru_cache(maxsize=512)
+@functools.lru_cache(maxsize=None)
 def _constant(data: bytes, np_dtype: str, shape: tuple, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     a = np.frombuffer(data, dtype=np_dtype).reshape(shape)
@@ -58,7 +58,9 @@ def device_constant(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor
     that: a device program that needs a table (camera intrinsics, level
     scales, a pattern) does not pay an upload, and the stall that an upload
     from pageable memory brings, every time it runs.  The tensor is shared:
-    callers never write to it."""
+    callers never write to it.  It is never evicted (a captured CUDA graph
+    reads it by address), so the values are a configuration's, never a
+    frame's."""
     a = np.ascontiguousarray(a)
     return _constant(a.tobytes(), a.dtype.str, a.shape, dtype,
                      torch.device(device))
