@@ -70,15 +70,15 @@ from pyorbslam_tpu_torch.slam.local_mapping import LocalMapper
 from pyorbslam_tpu_torch.slam.loop_closing import LoopCloser
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import (
-    fused_retrack_snapshot_step,
+    TrackRow,
     fused_retrack_step,
     fused_track_chain_step,
-    fused_track_step,
     fused_track_window,
     kf_snapshot,
     local_track_step,
     motion_track_step,
-    unpack_bool_np,
+    read_row,
+    read_snapshot,
 )
 from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import HostRead, upload
@@ -372,14 +372,11 @@ class System:
                 sp.args.update(n_feat=rec["n_feat"], n_local=rec["n_local"])
 
     def _dispatch_chain_inner(self, left, right, timestamp):
-        lm = self.map.landmarks
         mirror = self._landmark_mirror()
         local_ids = self._local_point_ids(self.last_assign)
-        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
-        p_ids = np.full(cap, -1, np.int32)
-        p_ids[: len(local_ids)] = local_ids
+        p_ids = self._pad_ids(local_ids)
 
-        q_lm = lm.resolve(self.last_assign)
+        q_lm = self._last_lm_ids()
         Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
         row, frame = fused_track_chain_step(
             left, right, *mirror,
@@ -414,25 +411,21 @@ class System:
                 sp.args["kf"] = n - 1 if n > n_kfs else -1
 
     def _commit_chain_inner(self, rec):
-        lm = self.map.landmarks
         self.frame_id += 1
         with self._t("async.read", sync=False):
             out = rec["row"].numpy()
-        N, P = rec["n_feat"], len(rec["p_ids"])
-        stats = out[:5]
-        raw = out[5:21].copy().view(np.float32).reshape(4, 4)
-        n_matches, n_in_motion, n_in_local = (int(x) for x in stats[:3])
+        row = read_row(out, rec["n_feat"], len(rec["p_ids"]))
         sp = trace.current()    # the commit's
         if sp is not None:
-            sp.args.update(matches=n_matches, inliers_motion=n_in_motion,
-                           inliers_local=n_in_local, rescue=0)
+            sp.args.update(matches=row.n_matches, inliers_motion=row.n_in_motion,
+                           inliers_local=row.n_in_local, rescue=0)
 
         # deferred maintenance may have refined the pose this frame's
         # prediction chained from (rec["base"]); rebase preserving the
         # tracked relative motion.  base == self.Tcw in the common
-        # no-refinement case, making this exactly `raw`.
-        healthy = (n_matches >= 20 and n_in_motion >= 20
-                   and n_in_local >= 10 and bool(np.isfinite(raw).all()))
+        # no-refinement case, making this exactly the row's pose.
+        healthy = (row.n_matches >= 20 and row.n_in_motion >= 20
+                   and row.n_in_local >= 10 and bool(np.isfinite(row.Tcw).all()))
         if not healthy:
             # weak tracking: the full per-frame state machine (motion
             # retry, BoW reference-KF fallback, wide rescue, reloc)
@@ -444,32 +437,15 @@ class System:
             self.trajectory.append(self.Tcw.copy())
             self._append_frame_ref()
             return
-        Tcw_i = np.ascontiguousarray(
-            raw @ np.linalg.inv(rec["base"]) @ self.Tcw, np.float32)
-
-        assign = lm.resolve(out[21: 21 + N])
-        assign = np.where(
-            (assign >= 0) & lm.alive[np.maximum(assign, 0)], assign, -1)
-        p_visible = unpack_bool_np(out[21 + N: 21 + N + P // 32], P)
-        vis_ids = rec["p_ids"][p_visible[:P]]
-        vis_ids = vis_ids[vis_ids >= 0]
-        lm.visible[vis_ids] += 1
-        found_ids = np.unique(assign[assign >= 0])
-        lm.found[found_ids] += 1
-        lm.visible[found_ids] += 1
-
-        tracked_close, non_tracked_close = int(stats[3]), int(stats[4])
-        self.state = "OK" if n_in_local >= 20 else "MARGINAL"
-        self.Tcw = Tcw_i
+        row = row._replace(
+            Tcw=np.ascontiguousarray(
+                row.Tcw @ np.linalg.inv(rec["base"]) @ self.Tcw, np.float32),
+            assign=self._live_assign(row.assign))
         # keyframe mapping work is deferred past the next dispatch (the
         # device tracks while the host runs it)
         self._defer_maintenance = True
         try:
-            self._finish_track(
-                rec["frame"], assign, n_matches, n_in_local,
-                tracked_close, non_tracked_close, rec["n_local"],
-                rec["timestamp"],
-            )
+            self._adopt_row(rec["frame"], row, rec["p_ids"], rec["timestamp"])
         finally:
             self._defer_maintenance = False
         self.trajectory.append(self.Tcw.copy())
@@ -641,11 +617,8 @@ class System:
 
     def _dispatch_window_inner(self, lefts, rights, timestamps):
         W = len(timestamps)
-        lm = self.map.landmarks
         local_ids = self._spatial_point_ids(self.Tcw)
-        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
-        p_ids = np.full(cap, -1, np.int32)
-        p_ids[: len(local_ids)] = local_ids
+        p_ids = self._pad_ids(local_ids)
 
         # one upload for the whole window, in the caller's dtype (uint8
         # where given: a quarter of float32's bytes)
@@ -653,7 +626,7 @@ class System:
             np.stack([np.asarray(lefts[i]), np.asarray(rights[i])])
             for i in range(W)]))
         frame0 = self.last_frame
-        q_lm0 = self._dev(lm.resolve(self.last_assign))
+        q_lm0 = self._dev(self._last_lm_ids())
         Tlw0 = self._dev(self.Tcw)
         Tllw0 = self._dev(
             (np.linalg.inv(self.velocity) @ self.Tcw).astype(np.float32))
@@ -698,14 +671,10 @@ class System:
         commit_sp = trace.current()     # the commit's
         timestamps = pending["timestamps"]
         lefts, rights = pending["lefts"], pending["rights"]
-        p_ids = pending["p_ids"]
-        local_n = pending["n_local"]
-        lm = self.map.landmarks
         W = len(timestamps)
         with self._t("window.read", sync=False):
             out = pending["packed"].numpy()     # ONE device->host transfer
-        N, P = pending["n_feat"], len(p_ids)
-        frames = pending["frames"]
+        frames = [pending["frame0"], *pending["frames"]]
 
         base_raw, base_corr = pending["base"] or (None, None)
         trk = self.cfg.tracking
@@ -713,66 +682,42 @@ class System:
         aborted = None
         retracks = rescued = 0
 
-        def retrack(*args, **kwargs):
-            nonlocal retracks, rescued
-            re, wide = self._retrack_window_frame(*args, **kwargs)
+        def retrack(i, raw, want_snapshot=False):
+            """Frame i re-tracked: (row, p_ids), or None when weak."""
+            nonlocal retracks, rescued, base_raw, base_corr
+            re, wide = self._retrack_window_frame(
+                frames[i + 1], frames[i], want_snapshot=want_snapshot)
             retracks += 1
             rescued += re is not None and wide
+            if re is not None and np.isfinite(raw).all():
+                # the re-tracked pose leaves the raw scan chain: fold the
+                # delta into the base correction so later rows follow.  A
+                # non-finite raw (a diverged scan pose) never becomes the
+                # base: later rows then rebase off the last finite one
+                base_raw, base_corr = raw.copy(), re[0].Tcw.copy()
             return re
 
         self._mapper_queue = 0   # window commit = mapper busy
         for i in range(W):
             with trace.span("window.row", self.frame_id + 1) as row_sp:
                 retracks_before = retracks
-                row = out[i]
-                raw = row[5:21].copy().view(np.float32).reshape(4, 4)
-                frame_i = frames[i]
-                frame_prev = pending["frame0"] if i == 0 else frames[i - 1]
-                retracked = False
-                scan_weak = (int(row[0]) < 20 or int(row[1]) < 20
-                             or not np.isfinite(raw).all())
-
-                def adopt_retrack(re):
-                    nonlocal base_raw, base_corr
-                    (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
-                     p_visible, tracked_close, non_tracked_close) = re
-                    # the re-tracked pose leaves the raw scan chain: fold the
-                    # delta into the base correction so later rows follow.  A
-                    # non-finite raw (a diverged scan pose) never becomes the
-                    # base: later rows then rebase off the last finite one
-                    if np.isfinite(raw).all():
-                        base_raw = raw.copy()
-                        base_corr = Tcw_i.copy()
-                    return (n_matches_i, n_inliers, Tcw_i, assign, p_ids_i,
-                            p_visible, tracked_close, non_tracked_close,
-                            int((p_ids_i >= 0).sum()))
-
-                if scan_weak:
+                row = read_row(out[i], pending["n_feat"], len(pending["p_ids"]))
+                raw = row.Tcw
+                if row.n_matches < 20 or row.n_in_motion < 20 \
+                        or not np.isfinite(raw).all():
                     # motion tracking collapsed mid-scan (often a stale map in
                     # the pipelined schedule): re-anchor on the device against
                     # the current map; only a failed re-track falls back to the
                     # per-frame rescue
                     self.events.append("retrack:scan_weak")
-                    re = retrack(frame_i, frame_prev)
+                    re = retrack(i, raw)
                     if re is None:
                         aborted = i
                         self.events.append("abort:scan_weak")
                         break
-                    (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
-                     p_visible, tracked_close, non_tracked_close,
-                     n_local_i) = adopt_retrack(re)
-                    retracked = True
                 else:
-                    n_matches_i = int(row[0])
-                    n_inliers = int(row[2])
-                    assign = lm.resolve(row[21: 21 + N])
-                    assign = np.where(
-                        (assign >= 0) & lm.alive[np.maximum(assign, 0)],
-                        assign, -1)
-                    p_visible = unpack_bool_np(row[21 + N: 21 + N + P // 32], P)
-                    if base_raw is None:
-                        Tcw_i = raw
-                    else:
+                    Tcw_i = raw
+                    if base_raw is not None:
                         # a singular base degrades to the per-frame rescue
                         # instead of aborting the whole commit
                         try:
@@ -781,70 +726,55 @@ class System:
                             aborted = i
                             self.events.append("abort:singular_base")
                             break
-                    Tcw_i = np.ascontiguousarray(Tcw_i, dtype=np.float32)
-                    tracked_close = int(row[3])
-                    non_tracked_close = int(row[4])
-                    n_local_i = local_n
-                    p_vis_ids = p_ids
+                    re = (row._replace(
+                        Tcw=np.ascontiguousarray(Tcw_i, dtype=np.float32),
+                        assign=self._live_assign(row.assign)), pending["p_ids"])
+                row, p_ids = re
 
                 # does this frame need a keyframe, or did its anchoring weaken
                 # below the commit bar?  The mapper is the reference's async
                 # LocalMapping: idle once its per-keyframe latency has elapsed
                 ks = self.map.keyframes
                 needs_kf = need_new_keyframe(
-                    n_inliers=int((assign >= 0).sum()),
+                    n_inliers=int((row.assign >= 0).sum()),
                     n_ref_matches=self._ref_kf_tracked_points(),
                     n_kfs=int(ks.alive[: ks.n].sum()),
                     frame_id=self.frame_id + 1,
                     last_kf_frame=self.last_kf_frame,
                     last_reloc_frame=self.last_reloc_frame,
-                    tracked_close=tracked_close,
-                    non_tracked_close=non_tracked_close,
+                    tracked_close=row.tracked_close,
+                    non_tracked_close=row.non_tracked_close,
                     min_frames=trk.min_frames, max_frames=trk.max_frames,
                     mapper_idle=(self.frame_id + 1 >= self.last_kf_frame
                                  + trk.mapper_latency_frames),
                     queue_len=self._mapper_queue,
                 )
-                if not retracked and (
-                        needs_kf or n_inliers < self.window_commit_min_inliers):
+                if retracks == retracks_before and (    # not re-tracked yet
+                        needs_kf or row.n_in_local < self.window_commit_min_inliers):
                     # a keyframe-to-be is re-anchored against the current map
                     # before insertion (its landmarks seed what follows); the
                     # same dispatch brings its insertion snapshot and BoW
                     self.events.append(
                         "retrack:needs_kf" if needs_kf else "retrack:weak_anchor")
-                    re = retrack(frame_i, frame_prev, want_snapshot=needs_kf)
+                    re = retrack(i, raw, want_snapshot=needs_kf)
                     if re is None:
                         # weak even against the current map: the per-frame
                         # machine's full rescue ladder takes this stretch
                         aborted = i
                         self.events.append("abort:retrack_failed")
                         break
-                    (n_matches_i, n_inliers, Tcw_i, assign, p_vis_ids,
-                     p_visible, tracked_close, non_tracked_close,
-                     n_local_i) = adopt_retrack(re)
+                    row, p_ids = re
 
                 self.frame_id += 1
-                vis_ids = p_vis_ids[p_visible[: len(p_vis_ids)]]
-                vis_ids = vis_ids[vis_ids >= 0]
-                lm.visible[vis_ids] += 1
-                found_ids = np.unique(assign[assign >= 0])
-                lm.found[found_ids] += 1
-                lm.visible[found_ids] += 1
-
-                self.state = "OK" if n_inliers >= 20 else "MARGINAL"
                 # a committed pose is rigid.  A scanned row composed with the
                 # base correction is not quite, and the device treats every pose
                 # it is given as rigid (``se3.inverse`` transposes): the next
                 # window's velocity seed and the VO points then carry the
                 # defect, and it grows window by window until the scan loses
                 # track (ROADMAP queue 3, F4)
-                self.Tcw = _rigid(Tcw_i)
-                pre_kf_Tcw = self.Tcw.copy()
-                self._finish_track(
-                    frame_i, assign, n_matches_i, n_inliers,
-                    tracked_close, non_tracked_close, n_local_i, timestamps[i],
-                )
-                if not np.allclose(self.Tcw, pre_kf_Tcw, atol=1e-7):
+                row = row._replace(Tcw=_rigid(row.Tcw))
+                self._adopt_row(frames[i + 1], row, p_ids, timestamps[i])
+                if not np.allclose(self.Tcw, row.Tcw, atol=1e-7):
                     # local BA moved the pose: later rows follow the move
                     base_raw = raw.copy()
                     base_corr = self.Tcw.copy()
@@ -872,13 +802,13 @@ class System:
         """The full tracking body (motion model + local map + pose
         optimization) for one scanned frame against the current map, from
         the features the scan built: the re-track before an in-window
-        keyframe insertion.  With ``want_snapshot`` the same dispatch also
-        returns the insertion snapshot and BoW vectors (one read, not two).
-        Returns ((n_matches, n_inliers, Tcw, assign, p_ids, p_visible,
-        tracked_close, non_tracked_close), or None when weak; whether the
-        28 px tier ran).  Both attempts read back at once, as the
-        synchronous schedule does.  Its span counts the search radius it
-        ended with (``th``) and whether it held (``ok``)."""
+        keyframe insertion.  With ``want_snapshot`` the same read also
+        brings the insertion snapshot and BoW vectors (one read, not two).
+        Returns ((``tracking.TrackRow``, the local map's padded ids), or
+        None when weak; whether the 28 px tier ran).  Both attempts read
+        back at once, as the synchronous schedule does.  Its span counts
+        the search radius it ended with (``th``) and whether it held
+        (``ok``)."""
         with self._t("window.retrack") as sp:
             re, wide = self._retrack_window_frame_inner(
                 frame_i, frame_prev, want_snapshot)
@@ -888,13 +818,9 @@ class System:
 
     def _retrack_window_frame_inner(self, frame_i, frame_prev,
                                     want_snapshot: bool):
-        lm = self.map.landmarks
         Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
-        q_lm = lm.resolve(self.last_assign)
-        local_ids = self._spatial_point_ids(Tcw_pred)
-        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
-        p_ids = np.full(cap, -1, np.int32)
-        p_ids[: len(local_ids)] = local_ids
+        q_lm = self._last_lm_ids()
+        p_ids = self._pad_ids(self._spatial_point_ids(Tcw_pred))
         voc = self.vocabulary
         want_snapshot = want_snapshot and voc is not None
         args = (frame_i, *self._landmark_mirror(), self._dev(q_lm), frame_prev,
@@ -902,42 +828,30 @@ class System:
                 self.cfg)
 
         def attempt(th_base):
+            row, _, _ = fused_retrack_step(*args, th_base=th_base)
+            out = row
             if want_snapshot:
-                packed = fused_retrack_snapshot_step(
-                    *args, voc._device_arrays(self.device), voc.k, voc.L,
-                    voc.feature_levels_up, th_base=th_base)
-            else:
-                packed = fused_retrack_step(*args, th_base=th_base)
-            return packed.cpu().numpy()
+                out = torch.cat([row, kf_snapshot(
+                    frame_i, voc._device_arrays(self.device), voc.k, voc.L,
+                    voc.feature_levels_up)])
+            out = out.cpu().numpy()
+            return read_row(out, len(q_lm), len(p_ids)), out[len(row):]
 
-        def weak(packed):
-            return int(packed[0]) < 20 or int(packed[1]) < 20 \
-                or int(packed[2]) < 20
+        def weak(row):
+            return row.n_matches < 20 or row.n_in_motion < 20 \
+                or row.n_in_local < 20
 
-        packed = attempt(7.0)
-        wide = weak(packed)
+        row, snap = attempt(7.0)
+        wide = weak(row)
         if wide:
             # the wide-radius rescue (the per-frame ladder's 28 px tier,
             # Tracking.py's 2*th retry) before giving up on the frame
-            packed = attempt(28.0)
-        if weak(packed):
+            row, snap = attempt(28.0)
+        if weak(row):
             return None, wide
-        N = q_lm.shape[0]
         if want_snapshot:
-            buf = packed[21 + N + len(p_ids):]
-            self._frame_cache = (frame_i, unpack_frame_np(buf[: 16 * N], N))
-            self._vocab_cache = (frame_i, (
-                buf[16 * N: 17 * N],
-                buf[17 * N: 18 * N].view(np.float32),
-                buf[18 * N: 19 * N],
-            ))
-            self._snap_prefetch = None
-        Tcw = packed[5:21].copy().view(np.float32).reshape(4, 4)
-        assign = packed[21: 21 + N].copy()
-        p_visible = packed[21 + N: 21 + N + len(p_ids)].astype(bool)
-        return (int(packed[0]), int(packed[2]),
-                np.ascontiguousarray(Tcw, np.float32), assign, p_ids,
-                p_visible, int(packed[3]), int(packed[4])), wide
+            self._adopt_snapshot(frame_i, snap)
+        return (row, p_ids), wide
 
     def corrected_trajectory(self) -> np.ndarray:
         """Per-frame Tcw with all keyframe corrections applied.  Frames
@@ -1103,7 +1017,7 @@ class System:
 
     def _track_fused(self, left, right, timestamp: float):
         """Fast path: the whole per-frame hot path as one device program
-        (tracking.fused_track_step) + one packed read-back.  Weak
+        (tracking.fused_track_chain_step) + one packed read-back.  Weak
         tracking goes to the step-by-step host path."""
         with self._t("perframe.track") as sp:
             if sp is not None:
@@ -1111,52 +1025,26 @@ class System:
             return self._track_fused_inner(left, right, timestamp)
 
     def _track_fused_inner(self, left, right, timestamp: float):
-        lm = self.map.landmarks
         Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
-        q_lm = lm.resolve(self.last_assign)
-        local_ids = self._local_point_ids(self.last_assign)
-        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
-        p_ids = np.full(cap, -1, np.int32)
-        p_ids[: len(local_ids)] = local_ids
-
-        fres = fused_track_step(
-            left, right, *self._landmark_mirror(),
-            self._dev(q_lm), self.last_frame,
-            self._dev(p_ids), self._dev(Tcw_pred), self._dev(self.Tcw),
-            self.cfg,
+        q_lm = self._last_lm_ids()
+        p_ids = self._pad_ids(self._local_point_ids(self.last_assign))
+        row, frame = fused_track_chain_step(
+            left, right, *self._landmark_mirror(), self.last_frame,
+            self._dev(q_lm), self._dev(Tcw_pred), self._dev(self.Tcw),
+            self._dev(p_ids), self.cfg,
         )
-        packed = fres.packed.cpu().numpy()   # ONE device->host transfer
-        n_feat = q_lm.shape[0]
-        stats = packed[:5]
-        Tcw = packed[5:21].view(np.float32).reshape(4, 4)
-        assign = packed[21: 21 + n_feat]
-        p_visible = packed[21 + n_feat:].astype(bool)
-        n_matches, n_in_motion, n_inliers, tracked_close, non_tracked_close = (
-            int(x) for x in stats
-        )
-        if n_matches < 20 or n_in_motion < 20 or n_inliers < 10:
+        # ONE device->host transfer
+        row = read_row(row.cpu().numpy(), len(q_lm), len(p_ids))
+        if row.n_matches < 20 or row.n_in_motion < 20 or row.n_in_local < 10:
             # weak tracking: rerun through the host state machine
             self.events.append("sync:weak")
-            return self._track(fres.frame, timestamp)
-
-        vis_ids = p_ids[p_visible]
-        vis_ids = vis_ids[vis_ids >= 0]
-        lm.visible[vis_ids] += 1
-        found_ids = np.unique(assign[assign >= 0])
-        lm.found[found_ids] += 1
-        lm.visible[found_ids] += 1
-
-        self.state = "OK" if n_inliers >= 20 else "MARGINAL"
-        self.Tcw = np.array(Tcw, np.float32)
-        self._finish_track(
-            fres.frame, assign, n_matches, n_inliers,
-            tracked_close, non_tracked_close, len(local_ids), timestamp,
-        )
+            return self._track(frame, timestamp)
+        self._adopt_row(frame, row, p_ids, timestamp)
 
     def _track(self, frame: StereoFrame, timestamp: float):
         lm = self.map.landmarks
         Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
-        lm_ids = lm.resolve(self.last_assign)
+        lm_ids = self._last_lm_ids()
         q_active = lm_ids >= 0
         safe = np.maximum(lm_ids, 0)
 
@@ -1195,9 +1083,7 @@ class System:
 
         # local map from covisibility (update_local_keyframes/points)
         local_ids = self._local_point_ids(assign)
-        cap = _cap_bucket(len(local_ids), self.cfg.tracking.max_local_points)
-        p_ids = np.full(cap, -1, np.int32)
-        p_ids[: len(local_ids)] = local_ids
+        p_ids = self._pad_ids(local_ids)
         p_safe = np.maximum(p_ids, 0)
         feat_has = assign >= 0
         feat_xw = lm.pos[np.maximum(assign, 0)]
@@ -1221,13 +1107,7 @@ class System:
         assign = np.where(feat_local >= 0, p_ids[np.maximum(feat_local, 0)], assign)
         assign = np.where(tracked, assign, -1).astype(np.int32)
 
-        # found / visible counters (track_local_map bookkeeping)
-        vis_ids = p_ids[lres.p_visible.cpu().numpy()]
-        vis_ids = vis_ids[vis_ids >= 0]
-        lm.visible[vis_ids] += 1
-        found_ids = np.unique(assign[assign >= 0])
-        lm.found[found_ids] += 1
-        lm.visible[found_ids] += 1
+        self._count_tracked(assign, p_ids[lres.p_visible.cpu().numpy()])
 
         if n_inliers >= 10:
             # accept: the reference keeps the optimized pose even when
@@ -1343,18 +1223,19 @@ class System:
         if self._snap_prefetch is not None and self._snap_prefetch[0] is frame:
             with self._t("kf.snapshot_read"):
                 buf = self._snap_prefetch[1].numpy()
-            self._snap_prefetch = None
-            n = frame.capacity
-            snap = unpack_frame_np(buf[: 16 * n], n)
-            self._frame_cache = (frame, snap)
-            self._vocab_cache = (frame, (
-                buf[16 * n: 17 * n],
-                buf[17 * n: 18 * n].view(np.float32),
-                buf[18 * n: 19 * n],
-            ))
-            return snap
+            return self._adopt_snapshot(frame, buf)
         snap = unpack_frame_np(pack_frame(frame).cpu().numpy(), frame.capacity)
         self._frame_cache = (frame, snap)
+        return snap
+
+    def _adopt_snapshot(self, frame: StereoFrame, buf: np.ndarray) -> dict:
+        """Cache a ``kf_snapshot`` buffer read back for ``frame``: its host
+        arrays and BoW vectors, so insertion reads nothing more; returns
+        the host arrays."""
+        snap, vocab = read_snapshot(buf, frame.capacity)
+        self._frame_cache = (frame, snap)
+        self._vocab_cache = (frame, vocab)
+        self._snap_prefetch = None
         return snap
 
     def _insert_keyframe(self, frame: StereoFrame, assign: np.ndarray,
@@ -1779,9 +1660,7 @@ class System:
             kf_pts = lm.resolve(kf_lm)
             kf_pts = np.unique(kf_pts[kf_pts >= 0])
             kf_pts = kf_pts[lm.alive[kf_pts]]
-            cap = _cap_bucket(len(kf_pts), self.cfg.tracking.max_local_points)
-            p_ids = np.full(cap, -1, np.int32)
-            p_ids[: len(kf_pts)] = kf_pts[:cap]
+            p_ids = self._pad_ids(kf_pts)
             p_safe = np.maximum(p_ids, 0)
 
             def rescue(assign, Tcw_np, radius_mult, max_dist_th):
@@ -1817,6 +1696,52 @@ class System:
         return None
 
     # ---------------- helpers ----------------
+
+    def _last_lm_ids(self) -> np.ndarray:
+        """The last frame's landmark id per feature, merges followed: what
+        the next tracking step queries."""
+        return self.map.landmarks.resolve(self.last_assign)
+
+    def _pad_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Local-map ids padded with -1 to their capacity bucket
+        (:func:`_cap_bucket`), the device programs' ``p_ids``."""
+        cap = _cap_bucket(len(ids), self.cfg.tracking.max_local_points)
+        p_ids = np.full(cap, -1, np.int32)
+        p_ids[: len(ids)] = ids[:cap]
+        return p_ids
+
+    def _live_assign(self, assign: np.ndarray) -> np.ndarray:
+        """A deferred row's landmark ids against the map as it is now:
+        merges followed, dead landmarks dropped (-1)."""
+        lm = self.map.landmarks
+        assign = lm.resolve(assign)
+        return np.where(
+            (assign >= 0) & lm.alive[np.maximum(assign, 0)], assign, -1)
+
+    def _count_tracked(self, assign: np.ndarray, vis_ids: np.ndarray):
+        """The found / visible counters (track_local_map's bookkeeping):
+        the local points that passed the frustum gate (``vis_ids``, -1 pads
+        skipped) were visible, the landmarks the frame tracked were found
+        and visible."""
+        lm = self.map.landmarks
+        lm.visible[vis_ids[vis_ids >= 0]] += 1
+        found_ids = np.unique(assign[assign >= 0])
+        lm.found[found_ids] += 1
+        lm.visible[found_ids] += 1
+
+    def _adopt_row(self, frame: StereoFrame, row: TrackRow, p_ids: np.ndarray,
+                   timestamp: float):
+        """Commit a healthy tracked frame's row, tracked against the local
+        map ``p_ids``: the found / visible counters, its state and pose,
+        then the keyframe decision (:meth:`_finish_track`)."""
+        self._count_tracked(row.assign, p_ids[row.p_visible])
+        self.state = "OK" if row.n_in_local >= 20 else "MARGINAL"
+        self.Tcw = row.Tcw
+        self._finish_track(
+            frame, row.assign, row.n_matches, row.n_in_local,
+            row.tracked_close, row.non_tracked_close,
+            int((p_ids >= 0).sum()), timestamp,
+        )
 
     def _ref_kf_tracked_points(self) -> int:
         """KeyFrame.tracked_map_points(minObs) for the reference (latest)

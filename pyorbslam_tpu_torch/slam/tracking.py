@@ -8,14 +8,15 @@ frame's landmarks with the constant-velocity prediction, match by
 projection at th=7 px, or 2*th when fewer than 20 match, rotation
 histogram, 4x10 LM pose optimization, strip outliers),
 :func:`local_track_step` (Tracking.track_local_map, Tracking.py:358-468),
-the fused per-frame programs :func:`fused_track_step` and
-:func:`fused_track_chain_step`, which gather landmark blocks from a
-device-resident mirror by index, and the windowed schedule's programs:
-:func:`fused_track_window` (W frames chained on the device) and the
-re-track of an already-built frame (:func:`fused_retrack_step`,
-:func:`fused_retrack_snapshot_step`).  The ``n_matches < 20`` style decisions
-are ``torch.where`` on the device, so a step reads nothing back to the
-host until its caller does.
+and their fused form on a built frame, :func:`fused_retrack_step`, which
+gathers landmark blocks from a device-resident mirror by index and is
+the one producer of a tracked frame's row; :func:`read_row` is its one
+decoder.  Every schedule runs it: :func:`fused_track_chain_step` (frame
+build + the core), :func:`fused_track_window` (W frames chained on the
+device) and the re-track of a scanned frame.  :func:`kf_snapshot` and its
+decoder :func:`read_snapshot` carry keyframe insertion's one read.  The
+``n_matches < 20`` style decisions are ``torch.where`` on the device, so
+a step reads nothing back to the host until its caller does.
 
 The host side, :class:`Tracker`, owns the landmark store and the
 bookkeeping of Tracking.py's state machine: stereo initialization
@@ -40,7 +41,8 @@ from pyorbslam_tpu_torch.ops import hamming as ham
 from pyorbslam_tpu_torch.ops import matching as match_ops
 from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import pose_opt
-from pyorbslam_tpu_torch.slam.frame import StereoFrame, build_stereo_frame, unproject
+from pyorbslam_tpu_torch.slam.frame import (
+    StereoFrame, build_stereo_frame, pack_frame, unpack_frame_np, unproject)
 from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
 from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import device_constant, upload
@@ -63,16 +65,6 @@ class LocalTrackResult(NamedTuple):
     inlier_edge: torch.Tensor  # (N,) bool
     n_inliers: torch.Tensor    # () int32 (mnMatchesInliers analog)
     p_visible: torch.Tensor    # (P,) bool: local point passed the frustum gate
-
-
-class FusedTrackResult(NamedTuple):
-    frame: StereoFrame         # the built frame (stays on the device)
-    packed: torch.Tensor       # (21 + N + P,) int32:
-    #   [0:5]   stats: n_matches, n_inliers_motion, n_inliers_local,
-    #           tracked_close, non_tracked_close
-    #   [5:21]  Tcw f32 bits (row-major)
-    #   [21:21+N]   assign: landmark id per feature (-1 none)
-    #   [21+N:]     p_visible as 0/1 per local-point slot
 
 
 class _Consts(NamedTuple):
@@ -288,20 +280,52 @@ def local_track_step(
     )
 
 
-def _fused_track_core(
-    frame: StereoFrame,
-    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-    q_lm, frame_prev: StereoFrame, p_ids, Tcw_pred, Tlw, cfg, th_base=7.0,
-):
-    """Shared body of the fused per-frame steps: motion-model + local-map
-    tracking against the landmark mirror.  Returns (packed result, Tcw,
-    assign).
+def _bitpack_bool(x: torch.Tensor) -> torch.Tensor:
+    """(P,) bool -> (P/32,) int32 little-endian bit words (P % 32 == 0)."""
+    bits = x.to(torch.int64).reshape(-1, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    return to_int32_bits((bits << shifts[None, :]).sum(dim=1))
 
-    Motion-stage queries are hybrid: last-frame slots backed by a live
+
+def unpack_bool_np(words: np.ndarray, n: int) -> np.ndarray:
+    """Host inverse of :func:`_bitpack_bool` -> (n,) bool."""
+    return np.unpackbits(
+        words.view(np.uint8), bitorder="little")[:n].astype(bool)
+
+
+def fused_retrack_step(
+    frame: StereoFrame,
+    m_pos: torch.Tensor,        # (M, 3)  device-resident landmark mirror
+    m_desc: torch.Tensor,       # (M, 8)
+    m_normal: torch.Tensor,     # (M, 3)
+    m_dmin: torch.Tensor,       # (M,)
+    m_dmax: torch.Tensor,       # (M,)
+    m_alive: torch.Tensor,      # (M,) bool
+    q_lm: torch.Tensor,         # (N,) landmark id per previous-frame feature
+    frame_prev: StereoFrame,    # previous frame's features (device)
+    p_ids: torch.Tensor,        # (P,) local-map landmark ids (-1 pad)
+    Tcw_pred: torch.Tensor,     # (4, 4) velocity prediction
+    Tlw: torch.Tensor,          # (4, 4) previous frame pose
+    cfg: SlamConfig,
+    th_base: float = 7.0,
+):
+    """The tracking core on a built frame, the one producer of a tracked
+    frame's row: motion-model + local-map tracking + pose optimization,
+    gathering landmark blocks from the device-resident mirror by index
+    (Tracking.track, Tracking.py:148-280).  Every schedule runs it: the
+    per-frame step after its frame build (:func:`fused_track_chain_step`),
+    each step of :func:`fused_track_window`, and the re-track of a scanned
+    frame against the current map without a second ORB extraction.
+
+    Motion-stage queries are hybrid: previous-frame slots backed by a live
     landmark use the mirror's position and descriptor; the rest chain
     visual odometry off the previous frame's stereo unprojection
     (Tracking.py:612-659's temporal VO points), which keeps motion
     tracking alive on a stale map.
+
+    Returns (row, Tcw, assign), the row
+    [stats 5 | Tcw f32 bits 16 | assign N | p_visible P/32 bit words]
+    (:func:`read_row` decodes it).
     """
     q_lm = q_lm.long()
     safe_q = torch.clamp(q_lm, min=0)
@@ -352,56 +376,35 @@ def _fused_track_core(
         res.n_matches, res.n_inliers, lres.n_inliers,
         tracked_close, non_tracked_close,
     ]).to(torch.int32)
-    packed = torch.cat([
+    row = torch.cat([
         stats,
         Tcw_fin.reshape(-1).contiguous().view(torch.int32),
         assign,
-        lres.p_visible.to(torch.int32),
+        _bitpack_bool(lres.p_visible),
     ])
-    return packed, Tcw_fin, assign
+    return row, Tcw_fin, assign
 
 
-def fused_track_step(
-    left: torch.Tensor, right: torch.Tensor,
-    m_pos: torch.Tensor,        # (M, 3)  device-resident landmark mirror
-    m_desc: torch.Tensor,       # (M, 8)
-    m_normal: torch.Tensor,     # (M, 3)
-    m_dmin: torch.Tensor,       # (M,)
-    m_dmax: torch.Tensor,       # (M,)
-    m_alive: torch.Tensor,      # (M,) bool
-    q_lm: torch.Tensor,         # (N,) landmark id per LAST-frame feature
-    last_frame: StereoFrame,    # previous frame's features (device)
-    p_ids: torch.Tensor,        # (P,) local-map landmark ids (-1 pad)
-    Tcw_pred: torch.Tensor,     # (4, 4) velocity prediction
-    Tlw: torch.Tensor,          # (4, 4) last frame pose
-    cfg: SlamConfig,
-    th_base: float = 7.0,
-) -> FusedTrackResult:
-    """The whole per-frame path in one call: stereo frame build +
-    motion-model tracking + local-map tracking, gathering landmark blocks
-    from the device-resident mirror by index (Tracking.track,
-    Tracking.py:148-280).  The local point set ``p_ids`` is computed by
-    the host from the previous frame, one frame staler than
-    Tracking.update_local_points (Tracking.py:392-436)."""
-    frame = build_stereo_frame(left, right, cfg)
-    packed, _, _ = _fused_track_core(
-        frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-        q_lm, last_frame, p_ids, Tcw_pred, Tlw, cfg, th_base,
-    )
-    return FusedTrackResult(frame=frame, packed=packed)
+class TrackRow(NamedTuple):
+    """A tracked frame's row on the host (:func:`read_row`)."""
+    n_matches: int             # motion-stage matches after the rotation check
+    n_in_motion: int           # motion-stage pose-opt stereo inliers
+    n_in_local: int            # local-map stage inliers (mnMatchesInliers)
+    tracked_close: int         # close stereo features with a landmark
+    non_tracked_close: int     # close stereo features without one
+    Tcw: np.ndarray            # (4, 4) float32 pose
+    assign: np.ndarray         # (N,) int32 landmark id per feature (-1 none)
+    p_visible: np.ndarray      # (P,) bool: local point passed the frustum gate
 
 
-def _bitpack_bool(x: torch.Tensor) -> torch.Tensor:
-    """(P,) bool -> (P/32,) int32 little-endian bit words (P % 32 == 0)."""
-    bits = x.to(torch.int64).reshape(-1, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    return to_int32_bits((bits << shifts[None, :]).sum(dim=1))
-
-
-def unpack_bool_np(words: np.ndarray, n: int) -> np.ndarray:
-    """Host inverse of :func:`_bitpack_bool` -> (n,) bool."""
-    return np.unpackbits(
-        words.view(np.uint8), bitorder="little")[:n].astype(bool)
+def read_row(out: np.ndarray, n_feat: int, n_pts: int) -> TrackRow:
+    """Host decoder of :func:`fused_retrack_step`'s row, read back as
+    int32 (``n_feat`` features, ``n_pts`` local-map slots)."""
+    n = 21 + n_feat
+    return TrackRow(
+        *(int(x) for x in out[:5]),
+        out[5:21].copy().view(np.float32).reshape(4, 4),
+        out[21:n], unpack_bool_np(out[n:n + n_pts // 32], n_pts))
 
 
 def fused_track_chain_step(
@@ -414,18 +417,17 @@ def fused_track_chain_step(
     p_ids: torch.Tensor,        # (P,) local-map ids (-1 pad)
     cfg: SlamConfig,
 ):
-    """One frame of the pipelined per-frame schedule: :func:`fused_track_step`
-    with the previous frame's features kept on the device and the result
-    row bit-packing its visibility mask.
+    """One frame of the per-frame schedules: the stereo frame build and
+    :func:`fused_retrack_step` on it.  The local point set ``p_ids`` is
+    computed by the host from the previous frame, one frame staler than
+    Tracking.update_local_points (Tracking.py:392-436).
 
-    Returns (row [stats 5 | Tcw 16 | assign N | p_visible P/32], frame)."""
+    Returns (row, frame)."""
     frame = build_stereo_frame(left, right, cfg)
-    packed, _, assign = _fused_track_core(
+    row, _, _ = fused_retrack_step(
         frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
         q_lm, frame_prev, p_ids, Tcw_pred, Tlw, cfg,
     )
-    n_core = 21 + assign.shape[0]
-    row = torch.cat([packed[:n_core], _bitpack_bool(packed[n_core:] != 0)])
     return row, frame
 
 
@@ -442,16 +444,15 @@ def fused_track_window(
 ):
     """Track a window of W frames with no host involvement: a loop over
     the frames carries (previous features, landmark assignment, pose pair)
-    on the device, each step the chain step's frame build and tracking
-    core with the constant-velocity prediction formed on the device.
+    on the device, each step the frame build and :func:`fused_retrack_step`
+    with the constant-velocity prediction formed on the device.
     Each step is a ``window.step`` span with its frame's id, counted from
     ``first_frame`` (None: the open span's).
 
     The local map (mirror + ``p_ids``) is frozen for the window, as the
     reference's asynchronous LocalMapping leaves tracking on a lagging
     map; the host makes the keyframe decisions after the window from the
-    rows.  Each row has :func:`fused_track_chain_step`'s layout
-    [stats 5 | Tcw 16 | assign N | p_visible P/32].
+    rows.
 
     Returns (stacked rows (W, 21 + N + P/32), the W built frames, the
     final carry (frame, assign, Tcw, Tlw), on the device).
@@ -465,34 +466,14 @@ def fused_track_window(
             frame_prev, q_lm, Tlw, Tllw = carry
             frame = build_stereo_frame(lr[0], lr[1], cfg)
             vel = Tlw @ se3.inverse(Tllw)
-            packed, Tcw, assign = _fused_track_core(
+            row, Tcw, assign = fused_retrack_step(
                 frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
                 q_lm, frame_prev, p_ids, vel @ Tlw, Tlw, cfg,
             )
-            n_core = 21 + assign.shape[0]
-            rows.append(torch.cat([packed[:n_core],
-                                   _bitpack_bool(packed[n_core:] != 0)]))
+            rows.append(row)
             frames.append(frame)
             carry = (frame, assign, Tcw, Tlw)
     return torch.stack(rows), frames, carry
-
-
-def fused_retrack_step(
-    frame: StereoFrame,
-    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-    q_lm, frame_prev: StereoFrame, p_ids, Tcw_pred, Tlw,
-    cfg: SlamConfig, th_base: float = 7.0,
-) -> torch.Tensor:
-    """The tracking core (motion model + local map + pose optimization)
-    on an already-built frame against the current landmark mirror: the
-    re-track of a scanned frame before keyframe insertion, without a
-    second ORB extraction.  Returns the unpacked row
-    [stats 5 | Tcw 16 | assign N | p_visible P]."""
-    packed, _, _ = _fused_track_core(
-        frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-        q_lm, frame_prev, p_ids, Tcw_pred, Tlw, cfg, th_base,
-    )
-    return packed
 
 
 def kf_snapshot(
@@ -505,7 +486,6 @@ def kf_snapshot(
     (Frame.compute_BoW, TemplatedVocabulary.transform:108-161).  Layout:
       [pack_frame 16N | word N | weight bits N | node N]."""
     from pyorbslam_tpu_torch.place.vocabulary import _transform_packed
-    from pyorbslam_tpu_torch.slam.frame import pack_frame
 
     return torch.cat([
         pack_frame(frame),
@@ -513,24 +493,14 @@ def kf_snapshot(
     ])
 
 
-def fused_retrack_snapshot_step(
-    frame: StereoFrame,
-    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-    q_lm, frame_prev: StereoFrame, p_ids, Tcw_pred, Tlw,
-    cfg: SlamConfig, voc_arrays,
-    voc_k: int, voc_L: int, voc_levels_up: int,
-    th_base: float = 7.0,
-) -> torch.Tensor:
-    """:func:`fused_retrack_step` and :func:`kf_snapshot` in one tensor,
-    read once: the re-track of a likely keyframe also brings its insertion
-    snapshot and BoW vectors to the host.  Layout:
-    [retrack 21 + N + P | snapshot 19N]."""
-    packed = fused_retrack_step(
-        frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
-        q_lm, frame_prev, p_ids, Tcw_pred, Tlw, cfg, th_base,
+def read_snapshot(buf: np.ndarray, n: int):
+    """Host decoder of :func:`kf_snapshot` for a frame of ``n`` features:
+    (the frame's host arrays (``unpack_frame_np``), (word, weight, node))."""
+    return unpack_frame_np(buf[: 16 * n], n), (
+        buf[16 * n: 17 * n],
+        buf[17 * n: 18 * n].view(np.float32),
+        buf[18 * n: 19 * n],
     )
-    return torch.cat([
-        packed, kf_snapshot(frame, voc_arrays, voc_k, voc_L, voc_levels_up)])
 
 
 @dataclasses.dataclass

@@ -360,14 +360,40 @@ class TestTrackingSteps:
         vis_j = jtrack.unpack_bool_np(jrow[21 + n:], cap)
         assert slot_agreement(vis_t, vis_j) >= 0.99
 
-        # fused_track_step is the same computation, unpacked visibility
-        fres = ttrack.fused_track_step(
-            T(seq.left[1]), T(seq.right[1]), *(m[k] for k in convert.MIRROR_FIELDS),
-            T(jax_state["assign0"]), jax_state["tframe0"], T(p_ids), T(eye), T(eye), tc)
-        packed = N(fres.packed)
-        np.testing.assert_array_equal(packed[:21 + n], trow[:21 + n])
-        np.testing.assert_array_equal(
-            N(ttrack._bitpack_bool(T(packed[21 + n:] != 0))), trow[21 + n:])
+    def test_read_row_and_snapshot(self, jax_state, cfgs):
+        """The host decoders: ``read_row`` of the row that
+        ``fused_retrack_step`` builds for frame 1 gives back the stats,
+        pose, assignment and visibility the row holds, and ``read_snapshot``
+        of ``kf_snapshot`` gives back ``unpack_frame_np(pack_frame(...))``
+        and the vocabulary's transform of the frame's descriptors."""
+        from pyorbslam_tpu_torch.place.vocabulary import load_default
+        from pyorbslam_tpu_torch.slam.frame import pack_frame, unpack_frame_np
+
+        tc = cfgs[1]
+        ts, frame = jax_state["tstore"], jax_state["tframe1"]
+        n, cap = frame.capacity, tc.tracking.max_local_points
+        p_ids = np.full(cap, -1, np.int32)
+        p_ids[: ts.n] = np.arange(ts.n)
+        eye = T(np.eye(4, dtype=np.float32))
+        m = convert.landmark_mirror(ts, CPU)
+        row, Tcw, assign = ttrack.fused_retrack_step(
+            frame, *(m[k] for k in convert.MIRROR_FIELDS), T(jax_state["assign0"]),
+            jax_state["tframe0"], T(p_ids), eye, eye, tc)
+        out = N(row)
+        r = ttrack.read_row(out, n, cap)
+        assert r.n_matches > 100 and r.p_visible.shape == (cap,) and all(
+            np.array_equal(a, b) for a, b in [
+                (r[:5], out[:5]), (r.Tcw, N(Tcw)), (r.assign, N(assign)),
+                (N(ttrack._bitpack_bool(T(r.p_visible))), out[21 + n:])])
+
+        voc = load_default()
+        snap, vocab = ttrack.read_snapshot(N(ttrack.kf_snapshot(
+            frame, voc._device_arrays(CPU), voc.k, voc.L, voc.feature_levels_up)), n)
+        want = unpack_frame_np(N(pack_frame(frame)), n)
+        assert snap.keys() == want.keys() and all(
+            np.array_equal(snap[k], want[k]) for k in want) and all(
+            np.array_equal(a, b) for a, b in zip(
+                vocab, voc.transform(frame.desc, levels_up=voc.feature_levels_up)))
 
 
 class TestConvert:

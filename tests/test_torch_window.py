@@ -1,7 +1,8 @@
 """The PyTorch port's windowed schedule against the JAX package:
-``fused_track_window``, the two re-track programs, and one carried window
-in each of the two windowed schedules (``track_stereo_window``,
-``window_feed`` / ``window_flush``).
+``fused_track_window``, the re-track program (its row alone and with the
+insertion snapshot after it), and one carried window in each of the two
+windowed schedules (``track_stereo_window``, ``window_feed`` /
+``window_flush``).
 
 One JAX ``System`` runs the first 12 frames of the cached 512x160
 sequence (loop closing off) and is carried into the port with
@@ -176,7 +177,8 @@ class TestDevicePrograms:
     @pytest.mark.parametrize("th_base", [7.0, 28.0])
     def test_fused_retrack_step(self, carried, window_rows, th_base):
         """The re-track of frame 12 (built by the JAX package, carried over)
-        against the map as of frame 11: the unpacked row."""
+        against the map as of frame 11: the port's row, its bit-packed
+        visibility unpacked, against the JAX package's unpacked row."""
         x, jc, tc = carried["inputs"], carried["jc"], carried["tc"]
         left, right = window_rows["images"][0]
         fj = jframe.build_stereo_frame_jit(jnp.asarray(left), jnp.asarray(right), jc)
@@ -186,23 +188,27 @@ class TestDevicePrograms:
         args_t = (*x["mirror_t"], T(x["q_lm"]), x["frame_t"], T(x["p_ids"]),
                   T(x["Tcw_pred"]), T(x["Tlw"]))
         jrow = np.asarray(jtrack.fused_retrack_step(fj, *args_j, jc, th_base=th_base))
-        trow = ttrack.fused_retrack_step(ft, *args_t, tc, th_base=th_base).numpy()
+        trow_t, _, _ = ttrack.fused_retrack_step(ft, *args_t, tc, th_base=th_base)
+        trow = trow_t.numpy()
         n, P = ft.capacity, len(x["p_ids"])
-        assert trow.shape == jrow.shape == (21 + n + P,)
-        assert_row_close(trow, jrow, n, None, f"retrack th={th_base}")
+        assert jrow.shape == (21 + n + P,) and trow.shape == (21 + n + P // 32,)
+        unpacked = np.concatenate([
+            trow[:21 + n], ttrack.unpack_bool_np(trow[21 + n:], P).astype(np.int32)])
+        assert_row_close(unpacked, jrow, n, None, f"retrack th={th_base}")
 
-        # the snapshot variant: the same row, then the insertion snapshot
+        # the re-track of a keyframe-to-be: the row, then the insertion
+        # snapshot, in one read
         jsys = carried["jsys"]
         jvoc, tvoc = jsys.vocabulary, carried["port"].vocabulary
         jsnap = np.asarray(jtrack.fused_retrack_snapshot_step(
             fj, *args_j, jc, jvoc._device_arrays(), jvoc.k, jvoc.L,
             jvoc.feature_levels_up, th_base=th_base))
-        tsnap = ttrack.fused_retrack_snapshot_step(
-            ft, *args_t, tc, tvoc._device_arrays(CPU), tvoc.k, tvoc.L,
-            tvoc.feature_levels_up, th_base=th_base).numpy()
-        assert tsnap.shape == jsnap.shape == (21 + n + P + 19 * n,)
-        np.testing.assert_array_equal(tsnap[:21 + n + P], trow)
-        np.testing.assert_array_equal(tsnap[21 + n + P:], jsnap[21 + n + P:])
+        tsnap = torch.cat([trow_t, ttrack.kf_snapshot(
+            ft, tvoc._device_arrays(CPU), tvoc.k, tvoc.L,
+            tvoc.feature_levels_up)]).numpy()
+        assert jsnap.shape == (21 + n + P + 19 * n,)
+        assert tsnap.shape == (len(trow) + 19 * n,)
+        np.testing.assert_array_equal(tsnap[len(trow):], jsnap[21 + n + P:])
 
 
 # ------------------------------------------------- carried schedules
