@@ -26,7 +26,8 @@ value ties, and the order of ties decides which features pair up.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from pyorbslam_tpu_torch.ops.fast import topk_stable
 from pyorbslam_tpu_torch.ops.hamming import popcount, unpack_bits
 from pyorbslam_tpu_torch.slam.slam_map import SlamMap
 from pyorbslam_tpu_torch.slam.tracking import _consts
+from pyorbslam_tpu_torch.utils.cuda_graph import GraphedProgram
 from pyorbslam_tpu_torch.utils.host_read import HostRead, device_constant, upload
 
 TRI_CAP = 512   # triangulation survivors read back per neighbor pair
@@ -145,12 +147,13 @@ def fuse_match_batch(
 def maintenance_ring_step(
     m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,   # landmark mirror
     ring,                       # DeviceKFRing.arrays
-    slot1, nb_slots, free1, nb_free, T1, nb_T,          # triangulation
-    fuse_ids, tgt_slots, tgt_Tcw,                       # fuse: kf pts -> targets
-    rev_ids,                                            # fuse: nb pts -> kf
+    slots,                      # (1 + B + T,) ring slots: KF, neighbors, targets
+    free1, nb_free, T1, nb_T,   # triangulation
+    fuse_ids, tgt_Tcw,          # fuse: kf pts -> targets
+    rev_ids,                    # fuse: nb pts -> kf
     cam5, baseline, scale_factors, level_sigma2,
     cfg: SlamConfig, scale_factor: float = 1.2,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, bool]:
     """The whole per-keyframe mapping pass as one device program and one
     packed read: epipolar triangulation over the ring neighbors
     (LocalMapping.create_new_map_points, LocalMapping.py:152-308), the
@@ -158,19 +161,51 @@ def maintenance_ring_step(
     neighbors' landmarks fused into the current KF
     (LocalMapping.search_in_neighbors, LocalMapping.py:333-383).  The
     three stages are data-independent given the dispatch-time map state.
-    ``slot1`` is a Python int, ``nb_slots`` / ``tgt_slots`` host arrays.
-    Layout:
+
+    ``slots`` (int64), ``fuse_ids`` and ``rev_ids`` are device tensors;
+    the per-call rest may be host arrays.  The ring rows and mirror rows
+    the pass reads are gathered first; :func:`maintenance_body` is the
+    rest, replayed from a CUDA graph on a card (``MAINTENANCE``).
+    Returns (packed, replayed); layout of packed:
       [tri B*6*TRI_CAP | fuse T*cap | rev cap2]  (int32)."""
-    xyA, ocA, deA, urA, dpA, vaA = ring
-    mirror = (m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive)
-    slot1 = int(slot1)
-    nb = upload(np.asarray(nb_slots, np.int64), xyA.device)
+    ids = torch.cat([fuse_ids, rev_ids])
+    safe = torch.clamp(ids, min=0).long()
+    rows = tuple(a[slots] for a in ring)
+    lm_rows = tuple(a[safe] for a in (m_pos, m_desc, m_normal, m_dmin, m_dmax,
+                                      m_alive))
+    B, T, cap = nb_T.shape[0], tgt_Tcw.shape[0], fuse_ids.shape[0]
+    body = functools.partial(
+        maintenance_body, cap=cap, cam5=cam5, baseline=baseline,
+        scale_factors=scale_factors, level_sigma2=level_sigma2, cfg=cfg,
+        scale_factor=scale_factor)
+    return MAINTENANCE(
+        body, (*rows, *lm_rows, ids, free1, nb_free, T1, nb_T, tgt_Tcw),
+        ring[0].device, settings=(cfg, cap, baseline, scale_factor),
+        counters=dict(cap=cap, cap2=rev_ids.shape[0], neighbors=B, targets=T,
+                      features=ring[0].shape[1]))
+
+
+def maintenance_body(
+    xyR, ocR, deR, urR, dpR, vaR,   # (1 + B + T, N, ...) ring rows
+    l_pos, l_desc, l_normal, l_dmin, l_dmax, l_alive,  # (cap + cap2, ...)
+    ids,                            # (cap + cap2,) landmark ids (-1 pad)
+    free1, nb_free, T1, nb_T, tgt_Tcw,
+    cap: int, cam5, baseline, scale_factors, level_sigma2,
+    cfg: SlamConfig, scale_factor: float = 1.2,
+) -> torch.Tensor:
+    """:func:`maintenance_ring_step` after its gathers: ring row 0 the
+    KF's, rows 1..B its triangulation neighbors', the last T the fuse
+    targets'; landmark rows the ``cap`` fuse candidates, then the reverse
+    candidates.  No host read and no upload, so a CUDA graph can capture
+    it."""
+    B, T = nb_T.shape[0], tgt_Tcw.shape[0]
     # compact both sides to their FREE features first (typically half
     # the budget): the epipolar Hamming matrix and every mask shrink 4x
     Q = min(TRI_Q, int(free1.shape[0]))
     q1 = topk_stable(free1.to(torch.float32), Q)[1]        # (Q,)
     q2 = topk_stable(nb_free.to(torch.float32), Q)[1]      # (B, Q)
-    x1, o1, d1, u1, z1 = (a[slot1] for a in (xyA, ocA, deA, urA, dpA))
+    x1, o1, d1, u1, z1 = (a[0] for a in (xyR, ocR, deR, urR, dpR))
+    nb = slice(1, 1 + B)
 
     def take(a):     # (B, N, ...) gathered along the feature axis by q2
         index = q2.reshape(q2.shape + (1,) * (a.dim() - 2)).expand(
@@ -179,8 +214,8 @@ def maintenance_ring_step(
 
     tri = tri_ops.triangulate_batch(
         x1[q1], o1[q1], d1[q1], u1[q1], z1[q1], free1[q1],
-        take(xyA[nb]), take(ocA[nb]), take(deA[nb]), take(urA[nb]),
-        take(dpA[nb]), torch.gather(nb_free, 1, q2), nb_T,
+        take(xyR[nb]), take(ocR[nb]), take(deR[nb]), take(urR[nb]),
+        take(dpR[nb]), torch.gather(nb_free, 1, q2), nb_T,
         T1, cam5, baseline, scale_factors, level_sigma2, scale_factor)
     # compact survivors to TRI_CAP rows per neighbor before the read;
     # indices map back to frame-feature space through the free-compaction
@@ -201,18 +236,23 @@ def maintenance_ring_step(
         pos_sel.contiguous().view(torch.int32).reshape(sel.shape[0], -1),
     ], dim=1)
 
-    block = _mirror_block(mirror, fuse_ids)
+    active = (ids >= 0) & l_alive
+    lm = (l_pos, l_desc, l_normal, l_dmin, l_dmax, active)
+    fwd = tuple(a[:cap] for a in lm)
     fuse = torch.stack([
-        _fuse_match_one(*block, xyA[s], ocA[s], None, deA[s], vaA[s], urA[s],
+        _fuse_match_one(*fwd, xyR[r], ocR[r], None, deR[r], vaR[r], urR[r],
                         tgt_Tcw[t], cfg, 3.0)
-        for t, s in enumerate(np.asarray(tgt_slots).tolist())])
+        for t, r in enumerate(range(1 + B, 1 + B + T))])
 
     rev = _fuse_match_one(
-        *_mirror_block(mirror, rev_ids),
-        xyA[slot1], ocA[slot1], None, deA[slot1], vaA[slot1], urA[slot1],
-        T1, cfg, 3.0)
+        *(a[cap:] for a in lm),
+        xyR[0], ocR[0], None, deR[0], vaR[0], urR[0], T1, cfg, 3.0)
 
     return torch.cat([tri_packed.reshape(-1), fuse.reshape(-1), rev])
+
+
+# the maintenance step's graphs, for the life of the process
+MAINTENANCE = GraphedProgram("kf.maintain_capture")
 
 
 @dataclasses.dataclass
@@ -358,21 +398,21 @@ class LocalMapper:
         if tri:
             neighbors, free1, Ow1 = tri
             nb_pad = (neighbors + [neighbors[0]] * B)[:B]
-            nb_slots = np.asarray(
-                [self.ring.slot_of[n] for n in nb_pad], np.int32)
+            nb_slots = [self.ring.slot_of[n] for n in nb_pad]
             nb_free = ks.kp_valid[nb_pad] & (ks.obs_lm[nb_pad] < 0)
             nb_T = ks.Tcw[np.asarray(nb_pad)]
         else:
             neighbors, free1 = [], np.zeros(ks.n_features, bool)
             Ow1 = None
-            nb_slots = np.full(B, slot1, np.int32)
+            nb_slots = [slot1] * B
             nb_free = np.zeros((B, ks.n_features), bool)
             nb_T = np.broadcast_to(ks.Tcw[kf], (B, 4, 4)).copy()
 
         T = self.FUSE_TARGETS
         tgt_pad = (targets + [targets[0] if targets else kf] * T)[:T]
-        tgt_slots = np.asarray(
-            [self.ring.slot_of[t] for t in tgt_pad], np.int32)
+        ring_slots = np.asarray(
+            [slot1] + nb_slots + [self.ring.slot_of[t] for t in tgt_pad],
+            np.int64)
         tgt_T = ks.Tcw[np.asarray(tgt_pad)]
         cap = self._bucket(len(cur_pts)) if len(cur_pts) else 1024
         fuse_ids = np.full(cap, -1, np.int32)
@@ -390,18 +430,18 @@ class LocalMapper:
 
         cam5, baseline, sf, s2 = self._tri_consts()
         mirror = self.mirror_fn()
-        handle = HostRead(maintenance_ring_step(
-            *mirror, self.ring.arrays,
-            int(slot1), nb_slots, self._dev(free1),
-            self._dev(nb_free), self._dev(ks.Tcw[kf]), self._dev(nb_T),
-            self._dev(fuse_ids), tgt_slots, self._dev(tgt_T),
-            self._dev(rev_ids),
+        packed, graph = maintenance_ring_step(
+            *mirror, self.ring.arrays, self._dev(ring_slots),
+            free1, nb_free, ks.Tcw[kf], nb_T,
+            self._dev(fuse_ids), tgt_T, self._dev(rev_ids),
             cam5, baseline, sf, s2,
             self.cfg, scale_factor=self.cfg.orb.scale_factor,
-        ))
+        )
+        handle = HostRead(packed)
         return dict(kf=kf, handle=handle, neighbors=neighbors, Ow1=Ow1,
                     targets=targets, fuse_ids=fuse_ids, rev_ids=rev_ids,
-                    nb_pts=nb_pts, cur_pts=cur_pts, B=B, T=T, cap=cap)
+                    nb_pts=nb_pts, cur_pts=cur_pts, B=B, T=T, cap=cap,
+                    graph=graph)
 
     def maintain_apply(self, pend: dict) -> dict:
         """Consume one maintenance dispatch: ONE host read, then host

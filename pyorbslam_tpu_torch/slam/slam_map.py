@@ -33,6 +33,7 @@ sharded over a device mesh (``parallel/dist_ba.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,6 +46,7 @@ from pyorbslam_tpu_torch.ops.orb_descriptor import to_int32_bits
 from pyorbslam_tpu_torch.optim import ba, ba_cg
 from pyorbslam_tpu_torch.slam.mapstore import KeyFrameStore, LandmarkStore
 from pyorbslam_tpu_torch.utils import trace
+from pyorbslam_tpu_torch.utils.cuda_graph import GraphedProgram
 from pyorbslam_tpu_torch.utils.host_read import HostRead, device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -72,6 +74,24 @@ def _pack_ba_result(cam_Tcw, pnt_pos, inlier):
         pnt_pos.contiguous().view(torch.int32).reshape(-1),
         words,
     ])
+
+
+def _dense_ba_body(cam_Tcw, cam_fixed, pnt_pos, pnt_active, g_cam, g_uvrq,
+                   g_oct, g_act, cam, isig_table, iters1: int,
+                   iters2: int) -> torch.Tensor:
+    """The dense local-BA solve on the packed grid upload, its result
+    packed for one read (:func:`_pack_ba_result`).  No host read and no
+    upload, so a CUDA graph can capture it."""
+    res = ba.bundle_adjust_grid_packed(
+        cam_Tcw, cam_fixed, pnt_pos, pnt_active, g_cam, g_uvrq, g_oct, g_act,
+        cam, isig_table, iters1=iters1, iters2=iters2)
+    return _pack_ba_result(res.cam_Tcw, res.pnt_pos, res.g_inlier.reshape(-1))
+
+
+# the dense solve's graphs, for the life of the process: keyed on its
+# buckets (C, P, K) and iteration counts, so a shape met once (global BA
+# after a loop closure) stays eager
+DENSE_BA = GraphedProgram("ba.solve_capture")
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -371,10 +391,12 @@ class SlamMap:
         implicit-Schur CG at global scale, on one device or sharded over
         ``mesh``: ``parallel/dist_ba.make_mesh()`` where none is given),
         write back, optionally erase outlier observations.  The buckets
-        keep the device program few-shaped (padding rows are inert), which
-        is what a CUDA graph capture needs later.  Every host array goes to
-        the device through pinned memory (``upload``), so a dispatch never
-        waits for the work queued before it."""
+        keep the device program few-shaped (padding rows are inert): on a
+        card the dense solve replays a CUDA graph per bucket and iteration
+        counts (``DENSE_BA``; the ``ba.solve`` span's ``graph`` says
+        whether it did).  Every host array goes to the device through
+        pinned memory, so a dispatch never waits for the work queued
+        before it."""
         if engine not in ("dense", "cg", "dist"):
             raise ValueError(f"unknown BA engine {engine!r}")
         # dist is the CG engine sharded, with the same full-scale buckets
@@ -433,8 +455,8 @@ class SlamMap:
                          ks.u_right[okf, oft]], axis=1).astype(np.float32)
         c = self.cfg.camera
         dev = self.device
-        cam5 = device_constant(np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf],
-                                          np.float32), torch.float32, dev)
+        cam5_host = np.asarray([c.fx, c.fy, c.cx, c.cy, c.bf], np.float32)
+        cam5 = device_constant(cam5_host, torch.float32, dev)
 
         def up(a):
             return upload(np.ascontiguousarray(a), dev)
@@ -475,16 +497,23 @@ class SlamMap:
         if n_drop:
             self.counters["ba.grid_dropped_obs"] += n_drop
 
-        with trace.stage(self.times, "ba.solve"):
-            res = ba.bundle_adjust_grid_packed(
-                up(cam_Tcw), up(cam_fixed), up(pnt_pos), up(pnt_active),
-                up(g_cam), up(g_uvrq), up(g_oct), up(g_act), cam5,
-                device_constant(inv_sigma2, torch.float32, dev),
-                iters1=iters1, iters2=iters2)
+        with trace.stage(self.times, "ba.solve") as sp:
+            packed, graph = DENSE_BA(
+                functools.partial(
+                    _dense_ba_body, cam=cam5,
+                    isig_table=device_constant(inv_sigma2, torch.float32, dev),
+                    iters1=iters1, iters2=iters2),
+                (cam_Tcw, cam_fixed, pnt_pos, pnt_active,
+                 g_cam, g_uvrq, g_oct, g_act),
+                dev, settings=(iters1, iters2, cam5_host.tobytes(),
+                               inv_sigma2.tobytes()),
+                counters=dict(cameras=C, points=P, width=K, iters1=iters1,
+                              iters2=iters2))
+            if sp is not None:
+                sp.args["graph"] = int(graph)
             # the copy to the host starts here; a split caller reads it a
             # frame later without a stall
-            handle = HostRead(_pack_ba_result(res.cam_Tcw, res.pnt_pos,
-                                              res.g_inlier.reshape(-1)))
+            handle = HostRead(packed)
             if not split and dev.type == "cuda":
                 # the synchronous schedule reads the result next; the wait
                 # belongs to the solve, not to the read

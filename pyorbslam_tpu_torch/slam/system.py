@@ -1392,6 +1392,9 @@ class System:
             with self._t("kf.maintain_dispatch", sync=False) as sp:
                 self._maint_span(sp, it)
                 it["pend"] = lmapper.maintain_dispatch(kf)
+                if sp is not None:
+                    sp.args["graph"] = int(it["pend"] is not None
+                                           and it["pend"]["graph"])
             if it["pend"] is None:
                 # ring rotated a participant out: separate-step fallback
                 # (its own reads wait for its results; the timer must not
@@ -1408,15 +1411,13 @@ class System:
             it["stage"] = "maint_dispatched"
             return
         if it["stage"] == "maint_dispatched":
-            # readiness-aware gap: the packed read has been copying since
-            # dispatch; if solve + transfer have not landed yet, defer
-            # ONE extra frame instead of blocking (a fixed extra wait
-            # compounds map staleness at high keyframe cadence)
-            if it["pend"]["handle"].pending() and not it.get("waited"):
-                it["waited"] = True
-                return
+            # the packed read has been copying since its dispatch a frame
+            # ago; one still in flight is waited for here and never put off
+            # to a later frame (the JAX package's ``_handle_pending`` puts
+            # it off), so the schedule and the map it builds do not depend
+            # on how fast the host ran
             with self._t("kf.maintain_apply", sync=False) as sp:
-                self._maint_span(sp, it, "waited")
+                self._maint_span(sp, it, it["pend"]["handle"])
                 info = lmapper.maintain_apply(it["pend"])
             self.events.append(("maintain", kf, info))
             self._mirror_stale = True
@@ -1436,12 +1437,9 @@ class System:
             it["stage"] = "post_ba"
             return self._advance_maint_item(it)
         if it["stage"] == "ba_dispatched":
-            # same readiness-aware deferral as the maintain stage
-            if it["ba_pend"]["handle"].pending() and not it.get("ba_waited"):
-                it["ba_waited"] = True
-                return
+            # read one frame after its dispatch, as the maintain stage's
             with self._t("kf.ba_apply", sync=False) as sp:
-                self._maint_span(sp, it, "ba_waited")
+                self._maint_span(sp, it, it["ba_pend"]["handle"])
                 info = self.map.local_ba_apply(it["ba_pend"])
             self.events.append(("local_ba", kf, info))
             delta = self.map.keyframes.Tcw[kf] @ np.linalg.inv(it["pre"])
@@ -1463,15 +1461,16 @@ class System:
             sp.frame = int(self.map.keyframes.frame_id[kf])
             sp.args["kf"] = kf
 
-    def _maint_span(self, sp, it, waited: Optional[str] = None):
+    def _maint_span(self, sp, it, read: Optional[HostRead] = None):
         """:meth:`_kf_span` for a mapping-pipe stage, with the items in the
-        pipe and, for a read, whether its readiness wait was taken."""
+        pipe and, for a read, whether it was still in flight (``pending``:
+        the host waits for it)."""
         if sp is None:
             return
         self._kf_span(sp, it["kf"])
         sp.args["pipe_depth"] = len(self._maint_pipe)
-        if waited is not None:
-            sp.args["deferred"] = int(bool(it.get(waited)))
+        if read is not None:
+            sp.args["pending"] = int(read.pending())
 
     def _cull_keyframes(self, kf: int):
         """Keyframe culling, every 4th keyframe."""

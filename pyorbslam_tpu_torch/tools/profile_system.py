@@ -1,12 +1,15 @@
 """Where a frame of ``System.track_stereo`` goes on one NVIDIA GPU.
 
     python3 -m pyorbslam_tpu_torch.tools.profile_system [--frames 16] [--warm 8]
-        [--pipelined | --window W] [--width 1241 --height 376]
+        [--pipelined | --window W] [--width 1241 --height 376] [--speed 0.8]
 
 Runs the port's ``System`` (default configuration, loop closing on) over
 the first frames of the 1241x376 / 2000-feature synthetic sequence that
 ``chip_smoke.py`` uses (another image size with ``--width`` /
-``--height``), in fresh ``System``s; frames after ``--warm`` count.  With
+``--height``; ``--speed`` metres a frame, 2.0 for a highway's pace), in
+fresh ``System``s, after a warm-up pass of one more: a benchmark process
+runs sessions back to back, so the programs replayed from CUDA graphs
+have met their keys before; frames after ``--warm`` count.  With
 ``--pipelined`` every run goes through ``System.track_stereo_async``; with
 ``--window W`` through ``System.window_feed`` in windows of W frames (the
 warm frames and the measured ones each end with ``window_flush``; a
@@ -15,10 +18,11 @@ warm frames and the measured ones each end with ``window_flush``; a
 1. **Spans.**  A run with the program's span recorder
    (``utils/trace.py``) on: wall ms a frame, and its spans by name:
    calls, host ms a frame (a span's time holds the spans inside it) and
-   the means of their counters; and ``frontend``: the share of the
-   measured ``track.frontend`` spans that replayed the frontend's CUDA
-   graph (``graph`` = 1), and the ``track.frontend_capture`` spans of the
-   warm frames and of the measured ones.
+   the means of their counters; and for each program replayed from CUDA
+   graphs (``frontend``: ``track.frontend``; ``maintenance``:
+   ``kf.maintain_dispatch``; ``ba_solve``: ``ba.solve``) the share of its
+   measured spans that replayed a graph (``graph`` = 1), and its capture
+   spans in the warm frames and in the measured ones.
 2. **Profiler.**  One more run with the recorder on and ``torch.profiler``
    recording the device's activity alone: launches, kernel time and busy
    time a frame (the union of the device's operation intervals, so
@@ -58,9 +62,10 @@ OUTSIDE = "outside"        # no program span open
 UNMATCHED = "unmatched"    # a kernel with no launch record in the trace
 
 
-def make_run(n_frames: int, width: int = WIDTH, height: int = HEIGHT):
+def make_run(n_frames: int, width: int = WIDTH, height: int = HEIGHT,
+             speed: float = 0.8):
     seq = generate_sequence(n_frames=n_frames, width=width, height=height,
-                            trajectory="straight", speed=0.8, seed=3)
+                            trajectory="straight", speed=speed, seed=3)
     cfg = SlamConfig(
         camera=CameraConfig(
             fx=float(seq.K[0, 0]), fy=float(seq.K[1, 1]),
@@ -224,16 +229,22 @@ def span_table(drained: trace.Drained, frames: int) -> dict:
             for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["host_ms"])}
 
 
-def frontend_summary(warm_spans: List[trace.Span],
-                     spans: List[trace.Span]) -> dict:
-    """How often the frontend replayed its CUDA graph: the measured
-    ``track.frontend`` spans, the share of them with ``graph`` = 1 (None
-    without one), and the ``track.frontend_capture`` spans of the warm
-    frames and of the measured ones."""
-    graph = [s.args.get("graph", 0) for s in spans if s.name == "track.frontend"]
+# the device programs replayed from CUDA graphs: (span, capture span)
+GRAPHED = dict(frontend=("track.frontend", "track.frontend_capture"),
+               maintenance=("kf.maintain_dispatch", "kf.maintain_capture"),
+               ba_solve=("ba.solve", "ba.solve_capture"))
+
+
+def graph_summary(warm_spans: List[trace.Span], spans: List[trace.Span],
+                  name: str, capture: str) -> dict:
+    """How often a program replayed its CUDA graph: the measured spans
+    called ``name``, the share of them with ``graph`` = 1 (None without
+    one), and the ``capture`` spans of the warm frames and of the
+    measured ones."""
+    graph = [s.args.get("graph", 0) for s in spans if s.name == name]
 
     def captures(of):
-        return sum(s.name == "track.frontend_capture" for s in of)
+        return sum(s.name == capture for s in of)
 
     return dict(spans=len(graph),
                 graph_share=sum(graph) / len(graph) if graph else None,
@@ -288,6 +299,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                       help="run System.window_feed in windows of W frames")
     ap.add_argument("--width", type=int, default=WIDTH)
     ap.add_argument("--height", type=int, default=HEIGHT)
+    ap.add_argument("--speed", type=float, default=0.8,
+                    help="metres a frame along the route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_system needs a CUDA device; none is available")
@@ -300,18 +313,24 @@ def main(argv: Optional[List[str]] = None) -> None:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    seq, cfg = make_run(args.frames, args.width, args.height)
+    seq, cfg = make_run(args.frames, args.width, args.height, args.speed)
+    t0 = time.perf_counter()
+    drive(seq, cfg, device, args.warm, args.pipelined, window=args.window)
+    print(f"warm-up pass: {time.perf_counter() - t0:.1f} s", flush=True)
     run = drive(seq, cfg, device, args.warm, args.pipelined, window=args.window)
     spans = span_table(run["drained"], run["frames"])
     schedule = (f" (windows of {args.window})" if args.window else
                 " (pipelined schedule)" if args.pipelined else "")
     print(f"recorder on, frames {args.warm}-{args.frames - 1}{schedule} at "
-          f"{args.width}x{args.height}: {run['ms_per_frame']:.1f} ms/frame", flush=True)
-    frontend = frontend_summary(run["warm_spans"], run["drained"].spans)
-    print(f"frontend: {frontend['spans']} track.frontend spans measured, graph "
-          f"replayed in a share of {frontend['graph_share']}; captures: "
-          f"{frontend['captures_warm']} warm, {frontend['captures_measured']} "
-          f"measured", flush=True)
+          f"{args.width}x{args.height}, {args.speed} m a frame: "
+          f"{run['ms_per_frame']:.1f} ms/frame", flush=True)
+    graphs = {}
+    for program, (name, capture) in GRAPHED.items():
+        g = graphs[program] = graph_summary(run["warm_spans"], run["drained"].spans,
+                                            name, capture)
+        print(f"{program}: {g['spans']} {name} spans measured, graph replayed "
+              f"in a share of {g['graph_share']}; captures: {g['captures_warm']} "
+              f"warm, {g['captures_measured']} measured", flush=True)
     prof = profiled(drive(seq, cfg, device, args.warm, args.pipelined,
                           profiler=True, window=args.window))
     print(f"profiler (device only, recorder on): {prof['launches_per_frame']:.0f} "
@@ -333,9 +352,9 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{k['name']}", flush=True)
     print(json.dumps(dict(card=smi, device=torch.cuda.get_device_name(0),
                           pipelined=args.pipelined, window=args.window,
-                          size=[args.width, args.height],
+                          size=[args.width, args.height], speed=args.speed,
                           ms_per_frame=run["ms_per_frame"], spans=spans,
-                          frontend=frontend,
+                          **graphs,
                           frameless_spans=sum(s.frame < 0 for s in run["drained"].spans),
                           profiler=prof)))
 

@@ -141,10 +141,11 @@ class TestProfileSummary:
                 span("track.frontend", graph=1)]
         measured = [span("track.frontend", graph=1), span("track.motion"),
                     span("track.frontend", graph=1), span("track.frontend", graph=0)]
-        got = profile_system.frontend_summary(warm, measured)
+        front = profile_system.GRAPHED["frontend"]
+        got = profile_system.graph_summary(warm, measured, *front)
         assert got == dict(spans=3, graph_share=2 / 3, captures_warm=1,
                            captures_measured=0)
-        assert profile_system.frontend_summary([], [])["graph_share"] is None
+        assert profile_system.graph_summary([], [], *front)["graph_share"] is None
 
 
 # -------------------------------------------------------------------- card

@@ -468,11 +468,14 @@ class TestMaintenanceRingStep:
         ring = convert.ring_from_numpy(args[6], CPU)
         (slot1, nb_slots, free1, nb_free, T1, nb_T, fuse_ids, tgt_slots,
          tgt_T, rev_ids, cam5, baseline, sf, s2) = args[7:21]
-        got = N(tlm.maintenance_ring_step(
-            *mirror, ring, int(slot1), np.asarray(nb_slots), T(free1),
-            T(nb_free), T(T1), T(nb_T), T(fuse_ids), np.asarray(tgt_slots),
-            T(tgt_T), T(rev_ids), T(cam5), float(baseline), T(sf), T(s2),
-            tc, scale_factor=kwargs["scale_factor"]))
+        slots = np.concatenate([[int(slot1)], np.asarray(nb_slots),
+                                np.asarray(tgt_slots)]).astype(np.int64)
+        got, replayed = tlm.maintenance_ring_step(
+            *mirror, ring, T(slots), T(free1), T(nb_free), T(T1), T(nb_T),
+            T(fuse_ids), T(tgt_T), T(rev_ids), T(cam5), float(baseline),
+            T(sf), T(s2), tc, scale_factor=kwargs["scale_factor"])
+        got = N(got)
+        assert not replayed
         assert got.shape == want.shape
         B, cap_t = 4, min(tlm.TRI_CAP, free1.shape[0])
         nt = 6 * cap_t

@@ -156,7 +156,7 @@ def test_keyframe_work_carries_its_frame(runs):
         if s.name in ("kf.ba_apply", "kf.maintain_apply"):
             root = [a for a in ancestors(s, ids)][-1]
             later += root.frame > s.frame
-            assert "deferred" in s.args and "pipe_depth" in s.args
+            assert "pending" in s.args and "pipe_depth" in s.args
         if s.name.startswith(("ba.", "loop.")):
             assert s.frame in kf_frames, s
     assert later > 0
