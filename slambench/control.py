@@ -62,6 +62,7 @@ def main(argv=None) -> int:
         side = json.loads(err[0][len("slambench: "):])
         print(json.dumps(dict(cell=cell.name, kind=kind, seed=seed, values=side["values"],
                               keyframes=side["keyframes"], events=side["events"],
+                              loops=side["loops"], loop_stage_s=side["loop_stage_s"],
                               correct=line["correct"], wall_s=time.perf_counter() - t0)),
               flush=True)
     return 0

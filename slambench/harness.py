@@ -36,7 +36,8 @@ import world
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-# The traced stretches start here in the first session: TRACE_FROM_FRAME
+# The traced stretches start here in the session the traffic names
+# (``trace_session``, the first where it names none): TRACE_FROM_FRAME
 # frames, the device's activity alone (the metrics), then NAMED_FRAMES
 # with the host's too (the idle stretches' names).  A traced run's
 # program-span metrics come from the calls before them: the profiler's
@@ -126,7 +127,10 @@ class Frame:
 def capture(system, n_handed: int, states: List[str]) -> dict:
     """What the correctness check reads of a finished session, as host
     arrays: the poses it gave back (Tcw, one a frame), its keyframes
-    after local BA with their features, its live landmarks."""
+    after local BA with their features, its live landmarks, and what its
+    loop closer did (closed, rejected and fused loops; 0 without one)
+    with the closer's own stage clocks."""
+    closer = system.loop_closer
     ks, lm = system.map.keyframes, system.map.landmarks
     alive = np.nonzero(ks.alive[: ks.n])[0]
     poses = np.stack(system.trajectory) if system.trajectory else np.zeros((0, 4, 4))
@@ -140,6 +144,10 @@ def capture(system, n_handed: int, states: List[str]) -> dict:
         n_keyframes_made=int(ks.n),
         events=[e for e in system.events if isinstance(e, str)],
         counters=dict(system.map.counters),
+        loops_closed=int(closer.n_loops_closed) if closer else 0,
+        loops_rejected=int(closer.n_loops_rejected) if closer else 0,
+        loops_fused=int(closer.n_loops_fused) if closer else 0,
+        loop_times=dict(closer.times) if closer else {},
     )
 
 
@@ -175,6 +183,7 @@ def drive(cell: Cell, make_system: Callable, route: world.Route, schedule,
     calls (in a traced run, those before the traced stretches), and the
     trace, reduced once the window has closed."""
     n = len(route.timestamps)
+    trace_session = cell.traffic.get("trace_session", 0)
     frames: List[Frame] = []
     sessions: List[dict] = []
     times: Dict[str, float] = defaultdict(float)
@@ -215,7 +224,7 @@ def drive(cell: Cell, make_system: Callable, route: world.Route, schedule,
             return i + k
 
         while i < n:
-            if traced and tracer is None and s == 0 and i >= TRACE_FROM_FRAME \
+            if traced and tracer is None and s == trace_session and i >= TRACE_FROM_FRAME \
                     and time.perf_counter() < t_end:
                 pace = (time.perf_counter() - mine[PACE_FROM_FRAME].handed) \
                     / (i - PACE_FROM_FRAME)
@@ -285,7 +294,9 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         program_cfg: Optional[Callable] = None) -> dict:
     """Set-up, window and the finished sessions of one run.  The keyword
     arguments past ``device`` are for tests and the control:
-    ``overrides`` and ``session_frames`` shrink the run, ``on_system``
+    ``overrides`` and ``session_frames`` shrink the run (the session's
+    length is otherwise the traffic's ``session_frames``, or the
+    configuration's where the traffic gives none), ``on_system``
     sees every System made (a fault planted by a test), ``program_cfg``
     maps the configuration the program is given (the route is rendered
     with the one the settings state)."""
@@ -296,8 +307,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
 
     cfg = slam_config(cell, overrides)
     voc = load_default()
-    n = session_frames or cell.entry["session_frames"]
+    n = session_frames or cell.traffic.get("session_frames") or cell.entry["session_frames"]
+    t_route = time.perf_counter()
     route = world.make_route(cell.traffic, camera_of(cfg), n, seed, device, tex_size)
+    t_route = time.perf_counter() - t_route
     schedule = load_module("schedules", cell.entry["schedule"])
 
     run_cfg = program_cfg(cfg) if program_cfg else cfg
@@ -313,6 +326,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     warm = cell.entry["warm_frames"]
+    t_warm = time.perf_counter()
     drive(cell, make_system,
           route._replace(left=route.left[:warm], right=route.right[:warm],
                          timestamps=route.timestamps[:warm]),
@@ -321,6 +335,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         torch.cuda.synchronize(device)
     gc.collect()
     setup_s = time.perf_counter() - t0
+    t_warm = time.perf_counter() - t_warm
 
     out = drive(cell, make_system, route, schedule, seconds, traced, device)
     if device.type == "cuda":
@@ -334,6 +349,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     win = window_metrics(out["frames"], seconds, out["t_end"])
     record = dict(cfg=run_cfg, times=out["times"], times_frames=out["times_frames"],
                   trace=out["trace"])
-    return dict(setup_s=setup_s, window=win, sessions=out["sessions"],
+    return dict(setup_s=setup_s, setup_parts=dict(route=t_route, warm=t_warm),
+                window=win, sessions=out["sessions"],
                 failed=failed_frames(out["frames"], out["sessions"]),
                 record=record, peak=peak, route=route)

@@ -18,6 +18,9 @@ from the same images:
 ``lm_gap_m``          the worst session's median distance of its live
     landmarks, carried by the keyframes' alignment onto the truth, to the
     nearest surface of the scene.
+``open_loop_sessions`` the number of sessions whose loop closer closed no
+    loop: compared (limit 0) in a cell whose every session drives back
+    past its start.
 
 A number that is not finite anywhere in what a session gave back (a
 pose, a keyframe's keypoint or pose, a landmark) makes the number it
@@ -139,7 +142,8 @@ def numbers(sessions, route, settings: dict, seed: int, device) -> dict:
         b, n = frontend_bad(sessions[s], k, route, settings, device)
         bad, total = bad + b, total + n
     return dict(frontend_bad_pct=100.0 * bad / total if total else float("inf"),
-                pose_ate_pct=worst(pose_ate), kf_ate_pct=worst(kf_ate), lm_gap_m=worst(lm_gap))
+                pose_ate_pct=worst(pose_ate), kf_ate_pct=worst(kf_ate), lm_gap_m=worst(lm_gap),
+                open_loop_sessions=sum(ses.get("loops_closed", 0) < 1 for ses in sessions))
 
 
 def worst(values: list) -> float:

@@ -30,8 +30,22 @@ def ray_depth(planes, Twc: np.ndarray, K: np.ndarray, xy: np.ndarray) -> np.ndar
     return best        # the ray's z component is 1, so t is the z-depth
 
 
+def plane_distance(pl, pts: np.ndarray) -> np.ndarray:
+    """Distance of each world point (N, 3) to one plane: to the plane
+    itself where it is unbounded, to its rectangle (half-extents ``ext1``
+    along ``e1`` and ``ext2`` along ``e2`` about ``p0``) where it is
+    bounded."""
+    rel = pts - pl.p0
+    if not (np.isfinite(pl.ext1) or np.isfinite(pl.ext2)):
+        return np.abs(rel @ pl.n)
+    past1 = np.maximum(np.abs(rel @ pl.e1) - pl.ext1, 0.0)
+    past2 = np.maximum(np.abs(rel @ pl.e2) - pl.ext2, 0.0)
+    return np.sqrt((rel @ pl.n) ** 2 + past1 ** 2 + past2 ** 2)
+
+
 def surface_distance(planes, pts: np.ndarray) -> np.ndarray:
-    """Distance of each world point (N, 3) to the nearest plane (the
-    corridor's planes are unbounded)."""
-    d = np.stack([np.abs((pts - pl.p0) @ pl.n) for pl in planes], axis=1)
+    """Distance of each world point (N, 3) to the nearest surface of the
+    scene (the corridor's planes are unbounded; the loop world's pillar
+    faces are bounded)."""
+    d = np.stack([plane_distance(pl, pts) for pl in planes], axis=1)
     return d.min(axis=1)

@@ -127,13 +127,21 @@ def measure(bench: dict, cell, seed: int, seconds: float, traced: bool, device,
     limits = harness.load_json("limits", cell.name + ".json")
     correct, rows = check.judge(values, limits)
 
-    side = {"frames_handed": win["frames_handed"], "frames_done": win["frames_done"],
+    side = {"setup_parts_s": res["setup_parts"],
+            "frames_handed": win["frames_handed"], "frames_done": win["frames_done"],
             "latency_median_ms": win["latency_median_ms"], "sessions": len(res["sessions"]),
             "keyframes": [s["n_keyframes_made"] for s in res["sessions"]],
             "events": sorted({e for s in res["sessions"] for e in s["events"]}),
-            "ba_counters": res["sessions"][-1]["counters"], "values": values}
+            "ba_counters": res["sessions"][-1]["counters"],
+            "loops": [[s["loops_closed"], s["loops_rejected"], s["loops_fused"]]
+                      for s in res["sessions"]],
+            "loop_stage_s": {k: sum(s["loop_times"].get(k, 0.0) for s in res["sessions"])
+                             for k in sorted({k for s in res["sessions"] for k in s["loop_times"]})},
+            "values": values}
     if traced and trace:
         side["trace_pace_ms"] = trace["pace_ms"]
+        # the frames whose calls the program-span metrics read
+        side["clock_frames"] = res["record"]["times_frames"]
     err = ["slambench: " + json.dumps(side, default=float)]
     line = {"correct": bool(correct), "attempted": win["frames_handed"],
             "failed": res["failed"], "metrics": metrics, "device": dev}

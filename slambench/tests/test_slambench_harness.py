@@ -159,9 +159,9 @@ def test_generator_matches_the_port():
                        baseline=0.54)
     mine = world.Renderer(planes, tex)
     port = TorchRenderer(planes, tex.numpy(), "cpu")
-    for Twc in poses[[0, 5, 11]]:
-        np.testing.assert_array_equal(mine.render(Twc, cam).numpy(),
-                                      port.render(Twc, cam.K, cam.width, cam.height))
+    views = poses[[0, 5, 11]]
+    for Twc, got in zip(views, mine.render_many(views, cam, batch=2).numpy()):
+        np.testing.assert_array_equal(got, port.render(Twc, cam.K, cam.width, cam.height))
     route = world.make_route(traffic, cam, 3, seed=3, device="cpu", tex_size=256)
     again = world.make_route(traffic, cam, 3, seed=3, device="cpu", tex_size=256)
     np.testing.assert_array_equal(route.left, again.left)

@@ -18,12 +18,16 @@ Frozen from ``pyorbslam_tpu_torch/io/synthetic.py`` (``Plane``,
   bit, whatever order the atomic adds land in.
 
 The route, the scene and the camera are fixed by the traffic file and
-the configuration; the seed draws the world's texture.
+the configuration; the seed draws the world's texture.  The straight
+corridor is generated here; any other route shape is the file
+``routes/<trajectory>.py``, found by the traffic file's ``trajectory``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import os
 from typing import List, NamedTuple
 
 import numpy as np
@@ -102,10 +106,22 @@ class Route(NamedTuple):
     camera: Camera
 
 
+def route_module(trajectory: str):
+    """``routes/<trajectory>.py`` as a module: ``poses(traffic, n_frames)``
+    and ``scene(traffic, poses)`` of a route shape found by its name."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "routes",
+                        trajectory + ".py")
+    if not os.path.exists(path):
+        raise ValueError(f"trajectory {trajectory!r}: no route file {path}")
+    spec = importlib.util.spec_from_file_location(f"slambench_routes_{trajectory}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def route_poses(traffic: dict, n_frames: int) -> np.ndarray:
     if traffic["trajectory"] != "straight":
-        raise ValueError(f"trajectory {traffic['trajectory']!r}: only "
-                         "'straight' is generated")
+        return route_module(traffic["trajectory"]).poses(traffic, n_frames)
     return straight_trajectory(n_frames, speed=traffic["speed_m_per_frame"],
                                yaw_amp=traffic["yaw_amp"])
 
@@ -113,7 +129,10 @@ def route_poses(traffic: dict, n_frames: int) -> np.ndarray:
 def route_scene(traffic: dict, poses: np.ndarray) -> List[Plane]:
     """``generate_sequence``'s corridor for a straight route: walls wide
     enough to hold the route's lateral wander, texture scale so the
-    texture does not repeat over the route and the view ahead."""
+    texture does not repeat over the route and the view ahead.  Any
+    other trajectory's scene is its route file's."""
+    if traffic["trajectory"] != "straight":
+        return route_module(traffic["trajectory"]).scene(traffic, poses)
     if traffic["scene"] != "corridor":
         raise ValueError(f"scene {traffic['scene']!r}: only 'corridor'")
     n = len(poses)
@@ -232,32 +251,40 @@ class Renderer:
         self.offsets = torch.as_tensor(offs[:-1], dtype=torch.int64, device=dev)
         self.atlas = torch.cat([m.reshape(-1) for m in mips])
 
-    def render(self, Twc: np.ndarray, cam: Camera) -> torch.Tensor:
-        """One view as a (height, width) uint8 tensor on the device."""
+    def render_many(self, Twcs: np.ndarray, cam: Camera, batch: int = 16) -> torch.Tensor:
+        """Views of many poses (N, 4, 4) as (N, height, width) uint8 on
+        the device, ``batch`` views on a leading axis, so that a scene of
+        many planes takes one pass over its planes a batch and not a view.
+        A view's pixels do not depend on the batch it is rendered in."""
+        return torch.cat([self._render_batch(Twcs[b: b + batch], cam)
+                          for b in range(0, len(Twcs), batch)])
+
+    def _render_batch(self, Twcs: np.ndarray, cam: Camera) -> torch.Tensor:
         dev, f32 = self.device, torch.float32
         width, height = cam.width, cam.height
         fx, fy, cx, cy = (float(np.float32(v)) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
-        T = torch.as_tensor(np.asarray(Twc, np.float32), device=dev)
+        T = torch.as_tensor(np.asarray(Twcs, np.float32), device=dev)       # (B, 4, 4)
         us = torch.arange(width, dtype=f32, device=dev)[None, :]
         vs = torch.arange(height, dtype=f32, device=dev)[:, None]
-        dx = ((us - cx) / fx).expand(height, width)
-        dy = ((vs - cy) / fy).expand(height, width)
-        Rwc, o = T[:3, :3], T[:3, 3]
-        dirs = dx[..., None] * Rwc[:, 0] + dy[..., None] * Rwc[:, 1] + Rwc[:, 2]
+        dx = ((us - cx) / fx).expand(height, width)[None, ..., None]
+        dy = ((vs - cy) / fy).expand(height, width)[None, ..., None]
+        Rwc, o = T[:, :3, :3], T[:, :3, 3]
+        dirs = dx * Rwc[:, None, None, :, 0] + dy * Rwc[:, None, None, :, 1] \
+            + Rwc[:, None, None, :, 2]                                       # (B, H, W, 3)
         dir_n2 = torch.sum(dirs * dirs, dim=-1)
-        num = torch.sum((self.p0 - o) * self.nrm, dim=-1)
-        rel0_e1 = torch.sum((o - self.p0) * self.e1, dim=-1)
-        rel0_e2 = torch.sum((o - self.p0) * self.e2, dim=-1)
+        num = torch.sum((self.p0[None] - o[:, None]) * self.nrm[None], dim=-1)      # (B, P)
+        rel0_e1 = torch.sum((o[:, None] - self.p0[None]) * self.e1[None], dim=-1)
+        rel0_e2 = torch.sum((o[:, None] - self.p0[None]) * self.e2[None], dim=-1)
 
-        inf = torch.full((height, width), float("inf"), dtype=f32, device=dev)
+        inf = torch.full(dir_n2.shape, float("inf"), dtype=f32, device=dev)
         best_t, tu, tv = inf, torch.zeros_like(inf), torch.zeros_like(inf)
         fp = torch.ones_like(inf)
         for i in range(self.p0.shape[0]):
             denom = _dot(dirs, self.nrm[i])
-            t = torch.where(torch.abs(denom) > 1e-9, num[i] / denom, inf)
+            t = torch.where(torch.abs(denom) > 1e-9, num[:, i, None, None] / denom, inf)
             valid = (t > 0.05) & (t < 400.0) & (t < best_t)
-            tu_m = rel0_e1[i] + t * _dot(dirs, self.e1[i])
-            tv_m = rel0_e2[i] + t * _dot(dirs, self.e2[i])
+            tu_m = rel0_e1[:, i, None, None] + t * _dot(dirs, self.e1[i])
+            tv_m = rel0_e2[:, i, None, None] + t * _dot(dirs, self.e2[i])
             hit = valid & (torch.abs(tu_m) <= self.ext1[i]) \
                 & (torch.abs(tv_m) <= self.ext2[i])
             best_t = torch.where(hit, t, best_t)
@@ -307,15 +334,11 @@ def make_route(traffic: dict, camera: Camera, n_frames: int, seed: int,
     planes = route_scene(traffic, poses)
     renderer = Renderer(planes, make_texture(seed, device, tex_size))
     offset = np.array([camera.baseline, 0.0, 0.0])
-    lefts, rights = [], []
-    for Twc in poses:
-        Twc_r = Twc.copy()
-        Twc_r[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ offset
-        lefts.append(renderer.render(Twc, camera))
-        rights.append(renderer.render(Twc_r, camera))
-    left = torch.stack(lefts).cpu().numpy()
-    right = torch.stack(rights).cpu().numpy()
+    right = poses.copy()
+    for Twc in right:       # the right camera: the baseline along the left's x
+        Twc[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ offset
     dt = 1.0 / traffic["camera_hz"]
-    return Route(left=left, right=right, poses_wc=poses,
+    return Route(left=renderer.render_many(poses, camera).cpu().numpy(),
+                 right=renderer.render_many(right, camera).cpu().numpy(), poses_wc=poses,
                  timestamps=np.arange(n_frames, dtype=np.float64) * dt,
                  planes=planes, camera=camera)
