@@ -24,6 +24,7 @@ import gc
 import importlib.util
 import json
 import os
+import re
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional
@@ -46,6 +47,11 @@ TRACE_FROM_FRAME = 40
 TRACE_MIN_FRAMES = 8
 NAMED_FRAMES = 8
 PACE_FROM_FRAME = 8     # the untraced pace: frames 8 to 40 of that session
+# ORB-SLAM2's loop closer corrects a candidate with this many matches
+# after the Sim3 projection (LoopClosing::ComputeSim3)
+LOOP_MATCHES = 40
+# the loop closer's event for each correction's accept check
+ACCEPT_CHECK = re.compile(r"loop:accept_check chi2_corr=(\S+) chi2_snap=(\S+)")
 
 
 def load_json(*parts) -> dict:
@@ -129,8 +135,13 @@ def capture(system, n_handed: int, states: List[str]) -> dict:
     arrays: the poses it gave back (Tcw, one a frame), its keyframes
     after local BA with their features, its live landmarks, and what its
     loop closer did (closed, rejected and fused loops; 0 without one)
-    with the closer's own stage clocks."""
+    with the closer's own stage clocks.  ``loop_pairs`` are the (keyframe,
+    candidate) pairs that reached ``LoopCloser.correct`` (``LOOP_MATCHES``
+    or more matches after the Sim3 projection), as frame ids, so that a culled
+    keyframe still resolves; ``loop_chi2`` each correction's (corrected,
+    snapshot) reprojection chi2 from its accept check."""
     closer = system.loop_closer
+    events = list(closer.events) if closer else []
     ks, lm = system.map.keyframes, system.map.landmarks
     alive = np.nonzero(ks.alive[: ks.n])[0]
     poses = np.stack(system.trajectory) if system.trajectory else np.zeros((0, 4, 4))
@@ -148,6 +159,11 @@ def capture(system, n_handed: int, states: List[str]) -> dict:
         loops_rejected=int(closer.n_loops_rejected) if closer else 0,
         loops_fused=int(closer.n_loops_fused) if closer else 0,
         loop_times=dict(closer.times) if closer else {},
+        loop_pairs=[(int(ks.frame_id[e[0]]), int(ks.frame_id[e[1]])) for e in events
+                    if isinstance(e, tuple) and e[2] == "total_matches"
+                    and e[3] >= LOOP_MATCHES],
+        loop_chi2=[tuple(map(float, m.groups())) for m in
+                   (ACCEPT_CHECK.match(e) for e in events if isinstance(e, str)) if m],
     )
 
 

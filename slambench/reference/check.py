@@ -21,6 +21,12 @@ from the same images:
 ``open_loop_sessions`` the number of sessions whose loop closer closed no
     loop: compared (limit 0) in a cell whose every session drives back
     past its start.
+``false_loops``       the worst session's count of the loop closer's
+    corrections (``loop_pairs``: the keyframe and candidate frames that
+    reached the correction) whose true camera centres lie more than
+    ``FALSE_LOOP_M`` apart: no revisit of one place, whether the program
+    then kept the correction or rolled it back.  Compared (limit 0) where
+    a limits file names it.
 
 A number that is not finite anywhere in what a session gave back (a
 pose, a keyframe's keypoint or pose, a landmark) makes the number it
@@ -37,6 +43,10 @@ from . import ate, geometry, orb
 DESC_BITS = 32          # of 256: a descriptor further off is another one
 DISPARITY_PX = 1.0
 MAX_KEYFRAMES = 64      # keyframes checked a run, drawn from the seed
+# a revisit's keyframes lie within a few metres of each other; pillar
+# faces that shared one patch of the texture, and that the loop closer
+# joined, lay 36-65 m apart
+FALSE_LOOP_M = 10.0
 
 
 def read_settings(path: str) -> dict:
@@ -109,6 +119,14 @@ def frontend_bad(session: dict, kf: int, route, settings: dict, device) -> tuple
     return int(bad.sum()), len(xy)
 
 
+def false_loops(session: dict, poses_wc: np.ndarray) -> int:
+    """The session's corrections between frames whose true camera centres
+    lie more than ``FALSE_LOOP_M`` apart."""
+    centres = poses_wc[:, :3, 3]
+    return sum(float(np.linalg.norm(centres[a] - centres[b])) > FALSE_LOOP_M
+               for a, b in session.get("loop_pairs", ()))
+
+
 def numbers(sessions, route, settings: dict, seed: int, device) -> dict:
     """The compared numbers of one run (see the module docstring)."""
     gt = route.poses_wc
@@ -143,7 +161,8 @@ def numbers(sessions, route, settings: dict, seed: int, device) -> dict:
         bad, total = bad + b, total + n
     return dict(frontend_bad_pct=100.0 * bad / total if total else float("inf"),
                 pose_ate_pct=worst(pose_ate), kf_ate_pct=worst(kf_ate), lm_gap_m=worst(lm_gap),
-                open_loop_sessions=sum(ses.get("loops_closed", 0) < 1 for ses in sessions))
+                open_loop_sessions=sum(ses.get("loops_closed", 0) < 1 for ses in sessions),
+                false_loops=max(false_loops(ses, gt) for ses in sessions))
 
 
 def worst(values: list) -> float:

@@ -8,20 +8,26 @@ Frozen from ``pyorbslam_tpu_torch/io/synthetic.py`` at commit fde81bb:
 gives ``loop_radius_m``, ``laps`` and ``layout_seed`` (the pillar layout,
 fixed as the corridor's walls are); ``--seed`` draws the texture.
 
-The world aliases: each face's texture coordinates start at its centre,
-so every pillar face shows the same patch of the texture, and place
-recognition verifies false loops between faces tens of metres apart.
-The layout's variety does not prevent that.  No cell runs this route
-yet; each face needs a texture origin of its own before one does.
+Each pillar face carries a texture origin of its own (``face_origins``),
+drawn from a stream seeded from ``layout_seed`` apart from the layout's,
+so that the layout stays the port's and no two faces sample overlapping
+rectangles of the texture: a face looks like another only where the
+route comes back to it.  The ground keeps origin (0, 0).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import numpy as np
 
 from world import TEX_SIZE, Plane
+
+# level-0 pixels kept between two faces' rectangles, a texel at mip level
+# 4: a face's bilinear reads at levels 0-3 stay clear of its neighbours
+ORIGIN_GAP = 16.0
+ORIGIN_TRIES = 10_000
 
 
 def loop_trajectory(n_frames: int, radius: float = 18.0,
@@ -49,8 +55,8 @@ def interior_loop_scene(radius: float, ground_y: float = 1.7,
     """Textured ground plus two rings of square pillars flanking the
     circle (centre (0, radius) in x-z), inside the stereo depth gate
     everywhere on the path.  The layout is aperiodic (spacing, ring
-    offset, size and height vary per pillar); the faces' textures are
-    not (the module's docstring)."""
+    offset, size and height vary per pillar), and each face samples a
+    rectangle of the texture of its own (``face_origins``)."""
     rng = np.random.RandomState(seed + 7)
     planes = [Plane(np.array([0.0, ground_y, 0.0]),
                     np.array([0.0, -1.0, 0.0]),
@@ -79,7 +85,30 @@ def interior_loop_scene(radius: float, ground_y: float = 1.7,
                               pz + nz * half]),
                     n, e1, np.array([0.0, 1.0, 0.0]), s,
                     ext1=half, ext2=height / 2))
-    return planes
+    return planes[:1] + face_origins(planes[1:], seed)
+
+
+def face_origins(faces: List[Plane], seed: int) -> List[Plane]:
+    """The bounded ``faces``, each with a texture origin drawn so that no
+    two faces' rectangles (origin ± ext × tex_scale on each axis, in
+    level-0 pixels, modulo the texture's size) come within ``ORIGIN_GAP``
+    pixels of each other: rejection sampling from ``RandomState([seed,
+    1])``, a stream apart from the layout's ``RandomState(seed + 7)``."""
+    rng = np.random.RandomState([seed, 1])
+    centres, halves, out = np.zeros((0, 2)), np.zeros((0, 2)), []
+    for face in faces:
+        half = np.array([face.ext1, face.ext2]) * face.tex_scale
+        for _ in range(ORIGIN_TRIES):
+            c = rng.uniform(0.0, TEX_SIZE, 2)
+            d = np.abs(centres - c) % TEX_SIZE
+            d = np.minimum(d, TEX_SIZE - d)
+            if not (d < halves + half + ORIGIN_GAP).all(axis=1).any():
+                break
+        else:
+            raise ValueError(f"no room in the texture for {len(faces)} faces")
+        centres, halves = np.vstack([centres, c]), np.vstack([halves, half])
+        out.append(dataclasses.replace(face, tex_origin=(float(c[0]), float(c[1]))))
+    return out
 
 
 def poses(traffic: dict, n_frames: int) -> np.ndarray:

@@ -135,6 +135,8 @@ def measure(bench: dict, cell, seed: int, seconds: float, traced: bool, device,
             "ba_counters": res["sessions"][-1]["counters"],
             "loops": [[s["loops_closed"], s["loops_rejected"], s["loops_fused"]]
                       for s in res["sessions"]],
+            "false_loops": [check.false_loops(s, res["route"].poses_wc) for s in res["sessions"]],
+            "loop_chi2": [s["loop_chi2"] for s in res["sessions"]],
             "loop_stage_s": {k: sum(s["loop_times"].get(k, 0.0) for s in res["sessions"])
                              for k in sorted({k for s in res["sessions"] for k in s["loop_times"]})},
             "values": values}

@@ -1,16 +1,20 @@
 """CPU tests of the loop route and of what a loop cell reads: the straight
 routes as they were before route shapes were found by name, the loop
 route and its frames against the port's generator and renderer, the
-distance to a bounded face, the ``loop_ms.live`` reader, and a small loop
-session through ``run.measure`` that closes its loop, beside one whose
-program closes none.  The loop cell (``kitti00-02.live`` under
-``traffic/loop.json``) is made here from its files, whether
-``BENCHMARK.json`` lists it or not, and so is the one limit these tests
-compare: the cell's limits file waits for sound readings of the other
-four numbers."""
+faces' texture origins (no two faces sample overlapping rectangles, an
+unbounded plane carries none, an origin shifts what a face shows and not
+its outline), the distance to a bounded face, ``false_loops`` on
+hand-made sessions, the ``loop_ms.live`` reader, and a small loop
+session through ``run.measure`` that closes its loop and corrects no
+false one, beside one whose program closes none.  The loop cell
+(``kitti00-02.live`` under ``traffic/loop.json``) is made here from its
+files, whether ``BENCHMARK.json`` lists it or not, and so is the one
+limit these tests compare: the cell's limits file waits for sound
+readings of the other four numbers."""
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -28,7 +32,7 @@ sys.path[:0] = [p for p in (BENCH_DIR, ROOT) if p not in sys.path]
 import harness  # noqa: E402
 import run  # noqa: E402
 import world  # noqa: E402
-from reference import geometry  # noqa: E402
+from reference import check, geometry  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -110,11 +114,13 @@ def test_loop_route_matches_the_port():
 
 def test_batched_render_equals_view_by_view():
     """``render_many``'s batches on the pillar world (bounded faces): bit
-    for bit the port's renderer, view by view."""
+    for bit the port's renderer, view by view.  The port's planes have no
+    texture origin, so both render the faces without theirs."""
     from pyorbslam_tpu_torch.io.render_torch import TorchRenderer
     t = loop_cell().traffic
     poses = world.route_poses(t, 40)
-    planes = world.route_scene(t, poses)
+    planes = [dataclasses.replace(p, tex_origin=(0.0, 0.0))
+              for p in world.route_scene(t, poses)]
     tex = world.make_texture(3, "cpu", 256)
     cam = world.Camera(fx=148.5, fy=148.5, cx=128.0, cy=35.0, width=256, height=80,
                        baseline=0.54)
@@ -123,6 +129,71 @@ def test_batched_render_equals_view_by_view():
     got = world.Renderer(planes, tex).render_many(views, cam, batch=3).numpy()
     for Twc, view in zip(views, got):
         np.testing.assert_array_equal(view, port.render(Twc, cam.K, cam.width, cam.height))
+
+
+def test_no_two_faces_sample_overlapping_texture():
+    """Each pillar face's rectangle of the texture, origin ± ext ×
+    tex_scale on each axis in level-0 pixels modulo the texture's size,
+    overlaps no other face's."""
+    t = loop_cell().traffic
+    faces = world.route_scene(t, world.route_poses(t, t["session_frames"]))[1:]
+    assert len(faces) == 2 * 16 * 4
+    centre = np.array([f.tex_origin for f in faces], np.float64)
+    half = np.array([[f.ext1 * f.tex_scale, f.ext2 * f.tex_scale] for f in faces])
+    assert np.isfinite(half).all()
+    d = np.abs(centre[:, None] - centre[None]) % world.TEX_SIZE
+    d = np.minimum(d, world.TEX_SIZE - d)
+    overlap = (d < half[:, None] + half[None]).all(axis=2)
+    np.fill_diagonal(overlap, False)
+    assert not overlap.any(), np.argwhere(overlap)[:5]
+
+
+def test_unbounded_planes_carry_no_origin(bench):
+    """The loop's ground and the straight routes' corridor planes keep
+    texture origin (0, 0), so they render as before."""
+    t = loop_cell().traffic
+    ground = world.route_scene(t, world.route_poses(t, 10))[0]
+    assert np.isinf(ground.ext1) and ground.tex_origin == (0.0, 0.0)
+    for name in STRAIGHT_ROUTES:
+        traffic = harness.resolve_cell(bench, name).traffic
+        planes = world.route_scene(traffic, world.route_poses(traffic, 66))
+        assert [p.tex_origin for p in planes] == [(0.0, 0.0)] * len(planes)
+
+
+def test_texture_origin_shifts_what_a_face_shows():
+    """A face with origin (o1, o2) shows, inside the same outline, what the
+    face without one shows on the texture rolled by (-o2, -o1): to
+    rounding, where the face is sampled at level 0."""
+    tex = world.make_texture(5, "cpu", 256)
+    face = world.Plane(np.array([0.0, 0.0, 4.0]), np.array([0.0, 0.0, -1.0]),
+                       np.array([1.0, 0.0, 0.0]), np.array([0.0, 1.0, 0.0]), 20.0,
+                       ext1=1.0, ext2=0.6)
+    cam = world.Camera(fx=148.5, fy=148.5, cx=64.0, cy=40.0, width=128, height=80,
+                       baseline=0.54)
+    view = np.eye(4)[None]
+    plain = world.Renderer([face], tex).render_many(view, cam)[0].int()
+    shifted = world.Renderer([dataclasses.replace(face, tex_origin=(37.0, 101.0))],
+                             tex).render_many(view, cam)[0].int()
+    rolled = world.Renderer([face], torch.roll(tex, shifts=(-101, -37), dims=(0, 1))) \
+        .render_many(view, cam)[0].int()
+    assert (shifted - rolled).abs().max() <= 1
+    # the outline, from the face on a blank texture: the background is 90
+    outline = world.Renderer([face], torch.full_like(tex, 200.0)).render_many(view, cam)[0] != 90
+    assert 0.1 < outline.float().mean() < 0.9
+    assert (shifted[~outline] == 90).all()
+    assert (shifted != plain)[outline].float().mean() > 0.5
+
+
+def test_false_loops():
+    """A correction between frames 40 m apart is false, one 2 m apart is
+    not, and a session with no correction has none."""
+    poses = np.tile(np.eye(4), (50, 1, 1))
+    poses[:, 2, 3] = np.arange(50, dtype=np.float64)      # 1 m a frame
+    assert check.false_loops(dict(loop_pairs=[(45, 5)]), poses) == 1
+    assert check.false_loops(dict(loop_pairs=[(45, 43)]), poses) == 0
+    assert check.false_loops(dict(loop_pairs=[(45, 5), (45, 43), (49, 1)]), poses) == 2
+    assert check.false_loops(dict(loop_pairs=[]), poses) == 0
+    assert check.false_loops({}, poses) == 0
 
 
 def test_surface_distance_on_bounded_and_unbounded_planes():
@@ -212,6 +283,7 @@ def test_every_session_closes_its_loop(rendered_once, monkeypatch, closer):
     if closer == "sound":
         assert side["loops"][0][0] >= 1
         assert got["value"] == 0
+        assert side["values"]["false_loops"] == 0 and side["false_loops"] == [0]
     else:
         assert side["loops"] == [[0, 0, 0]] * side["sessions"]
         assert got["value"] == side["sessions"] == 1

@@ -4,7 +4,7 @@ it and its stereo frames, all made on the device from ``--seed``.
 Frozen from ``pyorbslam_tpu_torch/io/synthetic.py`` (``Plane``,
 ``corridor_scene``, ``straight_trajectory``, the corridor sizing of
 ``generate_sequence``) and ``pyorbslam_tpu_torch/io/render_torch.py``
-(``TorchRenderer``) at commit 140fb47, with two changes:
+(``TorchRenderer``) at commit 140fb47, with three changes:
 
 * the camera is the settings file's (fx, fy, cx, cy, width, height, and
   the baseline bf / fx), where the port's generator fixes
@@ -15,7 +15,11 @@ Frozen from ``pyorbslam_tpu_torch/io/synthetic.py`` (``Plane``,
   lobe, fine speckle), where the port draws it blob by blob on the host
   (~25 s a 4096-px texture).  Blob sums are accumulated in fixed point,
   so on one kind of device the same seed gives the same texture bit for
-  bit, whatever order the atomic adds land in.
+  bit, whatever order the atomic adds land in;
+* a plane may carry a texture origin (``Plane.tex_origin``, level-0
+  texture pixels added to its texture coordinates once the hit test has
+  used the unshifted ones), so that each bounded face samples a patch of
+  its own; a plane without one renders bit for bit as before.
 
 The route, the scene and the camera are fixed by the traffic file and
 the configuration; the seed draws the world's texture.  The straight
@@ -46,6 +50,9 @@ class Plane:
     tex_scale: float    # texture pixels per metre
     ext1: float = np.inf
     ext2: float = np.inf
+    # level-0 texture pixels added to the face's (e1, e2) texture
+    # coordinates, so bounded faces can sample rectangles of their own
+    tex_origin: tuple = (0.0, 0.0)
 
 
 def corridor_scene(width_m: float = 16.0, ground_y: float = 1.7,
@@ -244,6 +251,7 @@ class Renderer:
         self.scale = scalars([p.tex_scale for p in planes])
         self.ext1 = scalars([min(p.ext1, 1e30) for p in planes])
         self.ext2 = scalars([min(p.ext2, 1e30) for p in planes])
+        self.origin = rows("tex_origin")
         mips = mip_chain(tex.to(torch.float32))
         self.n_levels = len(mips)
         self.sizes = torch.as_tensor([m.shape[0] for m in mips], device=dev)
@@ -288,8 +296,10 @@ class Renderer:
             hit = valid & (torch.abs(tu_m) <= self.ext1[i]) \
                 & (torch.abs(tv_m) <= self.ext2[i])
             best_t = torch.where(hit, t, best_t)
-            tu = torch.where(hit, tu_m * self.scale[i], tu)
-            tv = torch.where(hit, tv_m * self.scale[i], tv)
+            # an origin of 0 changes no sample: x + 0.0 is x, or +0.0 for -0.0,
+            # which wraps to the same texel
+            tu = torch.where(hit, tu_m * self.scale[i] + self.origin[i, 0], tu)
+            tv = torch.where(hit, tv_m * self.scale[i] + self.origin[i, 1], tv)
             fp = torch.where(
                 hit, self.scale[i] * t * dir_n2 / (fx * torch.abs(denom) + 1e-9), fp)
 
