@@ -63,8 +63,10 @@
    frames/s and the stage times of ``System.times`` (``kf.loop`` and
    ``kf.gba_slice`` among them) and the loop closer's ``detect`` calls.
    In this and every other ``run_system`` run the span recorder is on, and
-   pose_opt must have launched once per ``track.pose_opt`` span: the
-   kernel, never the twin, ran every pose optimization.
+   pose_opt must have launched once per ``track.pose_opt`` span outside a
+   graph's capture plus twice per ``track.step`` span that replayed the
+   step's CUDA graph: the kernel, never the twin, ran every pose
+   optimization.
 6. The per-level configuration (``use_atlas=False``) through ``System``
    over the first 12 frames: the same requirements (5 keyframes, 859
    triangulated), fast_score and brief_level launched exactly once per
@@ -963,11 +965,13 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
     elapsed = time.perf_counter() - t0
     trace.disable()
     counts = kernels.launch_counts()
-    pose_spans = sum(1 for sp in trace.drain().spans if sp.name == "track.pose_opt")
+    pose_spans, replayed_steps = pose_opt_calls(trace.drain().spans)
     if device.type == "cuda":
-        require(pose_spans > 0 and counts["pose_opt"] == pose_spans,
+        require(pose_spans + replayed_steps > 0
+                and counts["pose_opt"] == pose_spans + 2 * replayed_steps,
                 f"{which}: pose_opt launched {counts['pose_opt']} times in "
-                f"{pose_spans} track.pose_opt spans")
+                f"{pose_spans} track.pose_opt spans and {replayed_steps} "
+                f"replayed track.step spans")
     # frame 0 initializes (state OK asserted by the keyframe checks below)
     states = [st["state"] for st in system.stats]
     require(len(states) == n_frames - 1, f"{which}: {len(states)} tracked frames")
@@ -992,7 +996,8 @@ def run_system(seq, cfg, device, n_frames: int, launches: dict,
         f"local BA ran {n_ba} of {len(ba_runs)}, triangulated {n_new}, fused "
         f"{n_fused}, fallbacks to separate steps "
         f"{sum(1 for r in maintains if r['fallback'])}, launches {counts}, "
-        f"track.pose_opt spans {pose_spans}")
+        f"track.pose_opt spans {pose_spans}, replayed track.step spans "
+        f"{replayed_steps}")
     for label, times, n_of in (
             [(k, system.times, system.time_counts)
              for k in (ASYNC_STAGES if pipelined else STAGES)]
@@ -1049,6 +1054,25 @@ def _sync_watched(real, bucket: list):
                        for w in caught if "ynchroniz" in str(w.message)])
         return out
     return watched
+
+
+def pose_opt_calls(spans) -> tuple:
+    """(``track.pose_opt`` spans outside a CUDA graph's capture, which
+    enqueues nothing, ``track.step`` spans that replayed the step's graph,
+    whose two pose_opt launches open no span)."""
+    by_id = {sp.id: sp for sp in spans}
+
+    def captured(sp):
+        while sp.parent >= 0 and sp.parent in by_id:
+            sp = by_id[sp.parent]
+            if sp.name.endswith("_capture"):
+                return True
+        return False
+
+    pose = sum(sp.name == "track.pose_opt" and not captured(sp) for sp in spans)
+    replayed = sum(sp.name == "track.step" and sp.args.get("graph") == 1
+                   for sp in spans)
+    return pose, replayed
 
 
 def watch_dispatch_syncs(system) -> dict:

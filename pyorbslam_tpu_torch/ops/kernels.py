@@ -243,6 +243,16 @@ def count_launches(counts: Dict[str, int]) -> None:
         k.launches += counts.get(k.name, 0)
 
 
+def take_captured(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a :func:`launch_counts`),
+    taken off the counters again: what a CUDA graph captured in between
+    holds.  A capture enqueues nothing; each replay adds them back with
+    :func:`count_launches`."""
+    captured = {k.name: k.launches - before[k.name] for k in KERNELS}
+    count_launches({name: -n for name, n in captured.items()})
+    return captured
+
+
 def _check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                 device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype

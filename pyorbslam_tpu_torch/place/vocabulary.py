@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from pyorbslam_tpu_torch.ops.hamming import popcount
+from pyorbslam_tpu_torch.utils.host_read import device_constant
 
 DEFAULT_VOCAB_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -95,11 +96,15 @@ class Vocabulary:
 
     def _device_arrays(self, device) -> Tuple[torch.Tensor, ...]:
         """(node_desc, child_start, n_children, weight, word_id) on
-        ``device``, uploaded once per device."""
+        ``device``, looked up once per device and object.  They are
+        ``device_constant`` tables, which live as long as the process:
+        a captured CUDA graph (``tracking.KF_SNAPSHOT``) reads them by
+        address, and each ``System``'s vocabulary with the same values
+        hands out the same tensors."""
         device = torch.device(device)
         if device not in self._device:
             self._device[device] = tuple(
-                torch.as_tensor(a, device=device) for a in (
+                device_constant(a, torch.as_tensor(a).dtype, device) for a in (
                     self.node_desc, self.child_start, self.n_children,
                     self.weight, self.word_id))
         return self._device[device]

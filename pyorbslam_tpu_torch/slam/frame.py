@@ -104,10 +104,7 @@ class FrontendGraph:
             # thread_local: another thread (the live viewer's) may call CUDA
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 self.out = stereo_frame_body(self.left, self.right, cfg)
-            self.launches = {name: n - before[name]
-                             for name, n in kernels.launch_counts().items()}
-            # the capture enqueued nothing: its wrappers' counts come off again
-            kernels.count_launches({name: -n for name, n in self.launches.items()})
+            self.launches = kernels.take_captured(before)
 
     def __call__(self, left: torch.Tensor, right: torch.Tensor) -> StereoFrame:
         """Replay on the images, on the current stream.  The outputs are

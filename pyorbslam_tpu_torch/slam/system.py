@@ -74,7 +74,7 @@ from pyorbslam_tpu_torch.slam.tracking import (
     fused_retrack_step,
     fused_track_chain_step,
     fused_track_window,
-    kf_snapshot,
+    graphed_snapshot,
     local_track_step,
     motion_track_step,
     read_row,
@@ -378,11 +378,10 @@ class System:
 
         q_lm = self._last_lm_ids()
         Tcw_pred = (self.velocity @ self.Tcw).astype(np.float32)
+        # the host arrays go up through pinned memory into the step's inputs
         row, frame = fused_track_chain_step(
-            left, right, *mirror,
-            self.last_frame, self._dev(q_lm),
-            self._dev(Tcw_pred), self._dev(self.Tcw),
-            self._dev(p_ids), self.cfg,
+            left, right, *mirror, self.last_frame, q_lm, Tcw_pred,
+            self.Tcw, p_ids, self.cfg,
         )
         # the read-back overlaps the next commit and dispatch
         row = HostRead(row)
@@ -823,17 +822,16 @@ class System:
         p_ids = self._pad_ids(self._spatial_point_ids(Tcw_pred))
         voc = self.vocabulary
         want_snapshot = want_snapshot and voc is not None
-        args = (frame_i, *self._landmark_mirror(), self._dev(q_lm), frame_prev,
-                self._dev(p_ids), self._dev(Tcw_pred), self._dev(self.Tcw),
-                self.cfg)
+        args = (frame_i, *self._landmark_mirror(), q_lm, frame_prev, p_ids,
+                Tcw_pred, self.Tcw, self.cfg)
 
         def attempt(th_base):
             row, _, _ = fused_retrack_step(*args, th_base=th_base)
             out = row
             if want_snapshot:
-                out = torch.cat([row, kf_snapshot(
+                out = torch.cat([row, graphed_snapshot(
                     frame_i, voc._device_arrays(self.device), voc.k, voc.L,
-                    voc.feature_levels_up)])
+                    voc.feature_levels_up)[0]])
             out = out.cpu().numpy()
             return read_row(out, len(q_lm), len(p_ids)), out[len(row):]
 
@@ -1030,8 +1028,7 @@ class System:
         p_ids = self._pad_ids(self._local_point_ids(self.last_assign))
         row, frame = fused_track_chain_step(
             left, right, *self._landmark_mirror(), self.last_frame,
-            self._dev(q_lm), self._dev(Tcw_pred), self._dev(self.Tcw),
-            self._dev(p_ids), self.cfg,
+            q_lm, Tcw_pred, self.Tcw, p_ids, self.cfg,
         )
         # ONE device->host transfer
         row = read_row(row.cpu().numpy(), len(q_lm), len(p_ids))
@@ -1199,21 +1196,24 @@ class System:
 
     # ---------------- local mapping (synchronous) ----------------
 
-    @trace.spanned("track.prefetch")
     def _prefetch_snapshot(self, frame: StereoFrame):
         """Launch the keyframe snapshot+BoW program for a device-resident
         frame.  Costs no host read if never consumed (the buffer is
-        dropped); consumed lazily by :meth:`_frame_host`."""
+        dropped); consumed lazily by :meth:`_frame_host`.  A
+        ``track.prefetch`` span whose ``graph`` is 1 when the program
+        replayed its CUDA graph, 0 when it ran eagerly."""
         if self.vocabulary is None:
             return
-        if self._snap_prefetch is not None and \
-                self._snap_prefetch[0] is frame:
+        if self._snap_prefetch is not None and self._snap_prefetch[0] is frame:
             return
-        voc = self.vocabulary
-        buf = kf_snapshot(
-            frame, voc._device_arrays(self.device), voc.k, voc.L,
-            voc.feature_levels_up)
-        self._snap_prefetch = (frame, HostRead(buf))   # copy starts now
+        with trace.span("track.prefetch") as sp:
+            voc = self.vocabulary
+            buf, replayed = graphed_snapshot(
+                frame, voc._device_arrays(self.device), voc.k, voc.L,
+                voc.feature_levels_up)
+            self._snap_prefetch = (frame, HostRead(buf))   # copy starts now
+            if sp is not None:
+                sp.args["graph"] = int(replayed)
 
     def _frame_host(self, frame: StereoFrame) -> dict:
         """Host snapshot of a frame's per-feature arrays, pulled in ONE

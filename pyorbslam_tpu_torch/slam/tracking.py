@@ -16,7 +16,9 @@ build + the core), :func:`fused_track_window` (W frames chained on the
 device) and the re-track of a scanned frame.  :func:`kf_snapshot` and its
 decoder :func:`read_snapshot` carry keyframe insertion's one read.  The
 ``n_matches < 20`` style decisions are ``torch.where`` on the device, so
-a step reads nothing back to the host until its caller does.
+a step reads nothing back to the host until its caller does.  On a card
+the core and the snapshot replay from CUDA graphs, one per key
+(``TRACK_STEP``, ``KF_SNAPSHOT``; ``utils/cuda_graph.py``).
 
 The host side, :class:`Tracker`, owns the landmark store and the
 bookkeeping of Tracking.py's state machine: stereo initialization
@@ -29,7 +31,7 @@ tracking-only configuration.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +47,7 @@ from pyorbslam_tpu_torch.slam.frame import (
     StereoFrame, build_stereo_frame, pack_frame, unpack_frame_np, unproject)
 from pyorbslam_tpu_torch.slam.mapstore import LandmarkStore
 from pyorbslam_tpu_torch.utils import trace
+from pyorbslam_tpu_torch.utils.cuda_graph import GraphedProgram
 from pyorbslam_tpu_torch.utils.host_read import device_constant, upload
 from pyorbslam_tpu_torch.utils.precision import use_f32_matmuls
 
@@ -293,6 +296,47 @@ def unpack_bool_np(words: np.ndarray, n: int) -> np.ndarray:
         words.view(np.uint8), bitorder="little")[:n].astype(bool)
 
 
+# the fields of the two frames the tracking step reads: the new frame's
+# all but ``response``, the previous frame's those its motion queries take
+STEP_FIELDS = ("xy", "angle", "octave", "desc", "desc_bits", "valid",
+               "u_right", "depth")
+PREV_FIELDS = ("xy", "angle", "octave", "desc", "valid", "depth")
+# the fields of a frame the keyframe snapshot reads
+SNAPSHOT_FIELDS = ("xy", "angle", "u_right", "depth", "response", "octave",
+                   "valid", "desc")
+
+# the tracking step's and the keyframe snapshot's graphs, for the life of
+# the process
+TRACK_STEP = GraphedProgram("track.step_capture")
+KF_SNAPSHOT = GraphedProgram("track.snapshot_capture")
+
+
+def _fields(frame: StereoFrame, names: tuple) -> tuple:
+    return tuple(getattr(frame, f) for f in names)
+
+
+def _frame_of(names: tuple, tensors) -> StereoFrame:
+    """A :class:`StereoFrame` holding ``tensors`` as the fields ``names``,
+    None in the fields a body does not read."""
+    given = dict(zip(names, tensors))
+    return StereoFrame(*(given.get(f) for f in StereoFrame._fields))
+
+
+def step_settings(cfg: SlamConfig) -> tuple:
+    """Every setting :func:`track_step_body` reads, for its graph key: the
+    camera's intrinsics, image size and ThDepth, the pyramid's scale
+    factor and levels, the pose optimizer's rounds and iterations."""
+    c, o, b = cfg.camera, cfg.orb, cfg.ba
+    return (c.fx, c.fy, c.cx, c.cy, c.bf, c.width, c.height, c.th_depth,
+            o.scale_factor, o.n_levels, b.pose_rounds, b.pose_iters_per_round)
+
+
+def decode_row(row: torch.Tensor, n_feat: int):
+    """(Tcw (4, 4) float32, assign (N,) int32) of a row on its device:
+    views of it, so they live as long as the row does."""
+    return row[5:21].view(torch.float32).reshape(4, 4), row[21:21 + n_feat]
+
+
 def fused_retrack_step(
     frame: StereoFrame,
     m_pos: torch.Tensor,        # (M, 3)  device-resident landmark mirror
@@ -301,11 +345,11 @@ def fused_retrack_step(
     m_dmin: torch.Tensor,       # (M,)
     m_dmax: torch.Tensor,       # (M,)
     m_alive: torch.Tensor,      # (M,) bool
-    q_lm: torch.Tensor,         # (N,) landmark id per previous-frame feature
+    q_lm,                       # (N,) landmark id per previous-frame feature
     frame_prev: StereoFrame,    # previous frame's features (device)
-    p_ids: torch.Tensor,        # (P,) local-map landmark ids (-1 pad)
-    Tcw_pred: torch.Tensor,     # (4, 4) velocity prediction
-    Tlw: torch.Tensor,          # (4, 4) previous frame pose
+    p_ids,                      # (P,) local-map landmark ids (-1 pad)
+    Tcw_pred,                   # (4, 4) velocity prediction
+    Tlw,                        # (4, 4) previous frame pose
     cfg: SlamConfig,
     th_base: float = 7.0,
 ):
@@ -317,16 +361,58 @@ def fused_retrack_step(
     each step of :func:`fused_track_window`, and the re-track of a scanned
     frame against the current map without a second ORB extraction.
 
+    The body is :func:`track_step_body`; on a card it replays from a CUDA
+    graph per key (``TRACK_STEP``: the inputs' shapes, which hold the
+    feature capacity N, the mirror's M and the local bucket P, and
+    :func:`step_settings` with ``th_base``).  ``q_lm``, ``p_ids``,
+    ``Tcw_pred`` and ``Tlw`` may be host arrays, which go up through
+    pinned memory.  A ``track.step`` span whose ``graph`` is 1 when the
+    call replayed, 0 when it ran the body; a capture opens
+    ``track.step_capture`` with ``features``, ``mirror``, ``local`` and
+    ``th``.
+
+    Returns (row, Tcw, assign): the row
+    [stats 5 | Tcw f32 bits 16 | assign N | p_visible P/32 bit words]
+    (:func:`read_row` decodes it on the host) and its Tcw and assign
+    (:func:`decode_row`).  A replay's row is the graph's own tensor: the
+    next call of the step may overwrite it, so a caller copies it out
+    (``HostRead``, ``clone``) before calling again.
+    """
+    n = frame.capacity
+    with trace.span("track.step") as sp:
+        row, replayed = TRACK_STEP(
+            partial(track_step_body, cfg=cfg, th_base=th_base),
+            (*_fields(frame, STEP_FIELDS), m_pos, m_desc, m_normal, m_dmin,
+             m_dmax, m_alive, q_lm, *_fields(frame_prev, PREV_FIELDS), p_ids,
+             Tcw_pred, Tlw),
+            frame.xy.device, settings=(step_settings(cfg), float(th_base)),
+            counters=dict(features=n, mirror=m_pos.shape[0],
+                          local=p_ids.shape[0], th=th_base))
+        if sp is not None:
+            sp.args["graph"] = int(replayed)
+    return (row, *decode_row(row, n))
+
+
+def track_step_body(*inputs: torch.Tensor, cfg: SlamConfig,
+                    th_base: float) -> torch.Tensor:
+    """:func:`fused_retrack_step`'s device work on its inputs in order:
+    the frame's :data:`STEP_FIELDS`, the mirror's six blocks, ``q_lm``,
+    the previous frame's :data:`PREV_FIELDS`, ``p_ids``, ``Tcw_pred``,
+    ``Tlw``.  Returns the row.  No host read and no upload, so a CUDA
+    graph can capture it.
+
     Motion-stage queries are hybrid: previous-frame slots backed by a live
     landmark use the mirror's position and descriptor; the rest chain
     visual odometry off the previous frame's stereo unprojection
     (Tracking.py:612-659's temporal VO points), which keeps motion
     tracking alive on a stale map.
-
-    Returns (row, Tcw, assign), the row
-    [stats 5 | Tcw f32 bits 16 | assign N | p_visible P/32 bit words]
-    (:func:`read_row` decodes it).
     """
+    n_f, n_p = len(STEP_FIELDS), len(PREV_FIELDS)
+    frame = _frame_of(STEP_FIELDS, inputs[:n_f])
+    m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive, q_lm = inputs[n_f:n_f + 7]
+    frame_prev = _frame_of(PREV_FIELDS, inputs[n_f + 7:n_f + 7 + n_p])
+    p_ids, Tcw_pred, Tlw = inputs[n_f + 7 + n_p:]
+
     q_lm = q_lm.long()
     safe_q = torch.clamp(q_lm, min=0)
     has_lm = (q_lm >= 0) & m_alive[safe_q]
@@ -376,13 +462,12 @@ def fused_retrack_step(
         res.n_matches, res.n_inliers, lres.n_inliers,
         tracked_close, non_tracked_close,
     ]).to(torch.int32)
-    row = torch.cat([
+    return torch.cat([
         stats,
         Tcw_fin.reshape(-1).contiguous().view(torch.int32),
         assign,
         _bitpack_bool(lres.p_visible),
     ])
-    return row, Tcw_fin, assign
 
 
 class TrackRow(NamedTuple):
@@ -411,18 +496,19 @@ def fused_track_chain_step(
     left: torch.Tensor, right: torch.Tensor,
     m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,   # landmark mirror
     frame_prev: StereoFrame,    # previous frame's features (device)
-    q_lm: torch.Tensor,         # (N,) landmark id per prev-frame feature
-    Tcw_pred: torch.Tensor,     # (4, 4) velocity-model prediction
-    Tlw: torch.Tensor,          # (4, 4) prev frame pose
-    p_ids: torch.Tensor,        # (P,) local-map ids (-1 pad)
+    q_lm,                       # (N,) landmark id per prev-frame feature
+    Tcw_pred,                   # (4, 4) velocity-model prediction
+    Tlw,                        # (4, 4) prev frame pose
+    p_ids,                      # (P,) local-map ids (-1 pad)
     cfg: SlamConfig,
 ):
     """One frame of the per-frame schedules: the stereo frame build and
-    :func:`fused_retrack_step` on it.  The local point set ``p_ids`` is
-    computed by the host from the previous frame, one frame staler than
-    Tracking.update_local_points (Tracking.py:392-436).
+    :func:`fused_retrack_step` on it (``q_lm``, ``Tcw_pred``, ``Tlw`` and
+    ``p_ids`` device tensors or host arrays).  The local point set
+    ``p_ids`` is computed by the host from the previous frame, one frame
+    staler than Tracking.update_local_points (Tracking.py:392-436).
 
-    Returns (row, frame)."""
+    Returns (row, frame); the row is valid until the step's next call."""
     frame = build_stereo_frame(left, right, cfg)
     row, _, _ = fused_retrack_step(
         frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
@@ -466,10 +552,15 @@ def fused_track_window(
             frame_prev, q_lm, Tlw, Tllw = carry
             frame = build_stereo_frame(lr[0], lr[1], cfg)
             vel = Tlw @ se3.inverse(Tllw)
-            row, Tcw, assign = fused_retrack_step(
+            row, _, _ = fused_retrack_step(
                 frame, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_alive,
                 q_lm, frame_prev, p_ids, vel @ Tlw, Tlw, cfg,
             )
+            # the next step's replay may overwrite a replay's row: the
+            # window keeps a copy, and carries the pose and assignment
+            # decoded from it
+            row = row.clone()
+            Tcw, assign = decode_row(row, frame.capacity)
             rows.append(row)
             frames.append(frame)
             carry = (frame, assign, Tcw, Tlw)
@@ -484,13 +575,43 @@ def kf_snapshot(
     in ONE packed read: the host feature snapshot (pack_frame) plus the
     BoW word/weight/node vectors from the vocabulary tree descent
     (Frame.compute_BoW, TemplatedVocabulary.transform:108-161).  Layout:
-      [pack_frame 16N | word N | weight bits N | node N]."""
+      [pack_frame 16N | word N | weight bits N | node N].
+    The eager body of :func:`graphed_snapshot`: no host read and no
+    upload."""
     from pyorbslam_tpu_torch.place.vocabulary import _transform_packed
 
     return torch.cat([
         pack_frame(frame),
         _transform_packed(frame.desc, *voc_arrays, voc_k, voc_L, voc_levels_up),
     ])
+
+
+def _snapshot_body(*fields: torch.Tensor, voc_arrays, voc_k: int, voc_L: int,
+                   voc_levels_up: int) -> torch.Tensor:
+    return kf_snapshot(_frame_of(SNAPSHOT_FIELDS, fields), voc_arrays,
+                       voc_k, voc_L, voc_levels_up)
+
+
+def graphed_snapshot(
+    frame: StereoFrame, voc_arrays,
+    voc_k: int, voc_L: int, voc_levels_up: int,
+):
+    """(:func:`kf_snapshot`, replayed): on a card replayed from a CUDA
+    graph per key (``KF_SNAPSHOT``: the shapes of the frame's
+    :data:`SNAPSHOT_FIELDS`, the tree's k, L and levels up, and the
+    addresses of the vocabulary's device arrays).  A graph reads those
+    arrays by address, so they must live as long as the process
+    (``Vocabulary._device_arrays`` hands out such constants).  A capture
+    opens ``track.snapshot_capture`` with ``features``.  A replay's
+    buffer is the graph's own tensor: the caller copies it out before
+    calling again."""
+    return KF_SNAPSHOT(
+        partial(_snapshot_body, voc_arrays=voc_arrays, voc_k=voc_k,
+                voc_L=voc_L, voc_levels_up=voc_levels_up),
+        _fields(frame, SNAPSHOT_FIELDS), frame.xy.device,
+        settings=(voc_k, voc_L, voc_levels_up,
+                  tuple(a.data_ptr() for a in voc_arrays)),
+        counters=dict(features=frame.capacity))
 
 
 def read_snapshot(buf: np.ndarray, n: int):

@@ -19,7 +19,8 @@ warm frames and the measured ones each end with ``window_flush``; a
    (``utils/trace.py``) on: wall ms a frame, and its spans by name:
    calls, host ms a frame (a span's time holds the spans inside it) and
    the means of their counters; and for each program replayed from CUDA
-   graphs (``frontend``: ``track.frontend``; ``maintenance``:
+   graphs (``frontend``: ``track.frontend``; ``step``: ``track.step``;
+   ``snapshot``: ``track.prefetch``; ``maintenance``:
    ``kf.maintain_dispatch``; ``ba_solve``: ``ba.solve``) the share of its
    measured spans that replayed a graph (``graph`` = 1), and its capture
    spans in the warm frames and in the measured ones.
@@ -231,6 +232,8 @@ def span_table(drained: trace.Drained, frames: int) -> dict:
 
 # the device programs replayed from CUDA graphs: (span, capture span)
 GRAPHED = dict(frontend=("track.frontend", "track.frontend_capture"),
+               step=("track.step", "track.step_capture"),
+               snapshot=("track.prefetch", "track.snapshot_capture"),
                maintenance=("kf.maintain_dispatch", "kf.maintain_capture"),
                ba_solve=("ba.solve", "ba.solve_capture"))
 

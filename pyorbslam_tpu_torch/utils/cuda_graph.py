@@ -1,7 +1,8 @@
 """Device programs replayed from CUDA graphs, one per key.
 
-A keyframe-side program (the maintenance step, the dense local-BA solve)
-is thousands of small launches, and the host's time to enqueue them sets
+A device program such as the frame's tracking step, the keyframe
+snapshot, the maintenance step or the dense local-BA solve is hundreds to
+thousands of small launches, and the host's time to enqueue them sets
 the pace.  :class:`GraphedProgram` runs such a program's body on a CUDA
 device as a graph: a key's first call runs the body eagerly, which fills
 the device constants it reads and warms the allocator; its second call
@@ -24,12 +25,16 @@ the current stream (``HostRead``) before it calls the program again.
 Stream order then gives two calls in flight their own results, and the
 graphs of one program can share one memory pool.
 
+A graph adds the launches of the hand-written kernels it holds (counted
+by their wrappers while it was captured, and taken off again, since a
+capture enqueues nothing) to ``kernels.launch_counts()`` at every
+replay, as the eager body's wrappers would: the launch gates of
+``chip_smoke.py`` read them.
+
 The frontend's graph (``slam/frame.py::FrontendGraph``) does the same job
 with rules of its own: it returns a frame of several tensors, cloned
-because callers keep frames across replays, and it adds its hand-written
-kernels' launches to ``kernels.launch_counts()`` at every replay, which
-the launch gates of ``chip_smoke.py`` read.  Routing it through this
-class needs tuple outputs and such a launch-count hook here first.
+because callers keep frames across replays.  Routing it through this
+class needs tuple outputs here first.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from pyorbslam_tpu_torch.ops import kernels
 from pyorbslam_tpu_torch.utils import trace
 from pyorbslam_tpu_torch.utils.host_read import upload
 
@@ -61,7 +67,8 @@ def _fill(dst: torch.Tensor, src) -> None:
 
 
 class _Graph:
-    """The body captured once: static inputs, the graph, its output."""
+    """The body captured once: static inputs, the graph, its output, and
+    the hand-written kernels' launches it holds."""
 
     def __init__(self, body: Callable[..., torch.Tensor], inputs: Sequence,
                  device: torch.device, program: "GraphedProgram"):
@@ -70,6 +77,7 @@ class _Graph:
             self.inputs = [torch.empty(tuple(a.shape), dtype=_dtype(a), device=device)
                            for a in inputs]
             self.graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
             # a side stream, as torch.cuda.graph captures on, but without its
             # device-wide synchronize: a capture comes in the middle of a
             # pipelined schedule whose work stays in flight, and a capture
@@ -81,12 +89,14 @@ class _Graph:
                     self.out = body(*self.inputs)
                 finally:
                     self.graph.capture_end()
+            self.launches = kernels.take_captured(before)
 
     def __call__(self, inputs: Sequence) -> torch.Tensor:
         with torch.cuda.device(self.out.device):
             for dst, src in zip(self.inputs, inputs):
                 _fill(dst, src)
             self.graph.replay()
+        kernels.count_launches(self.launches)
         return self.out
 
 

@@ -53,7 +53,7 @@ def _constant(data: bytes, np_dtype: str, shape: tuple, dtype: torch.dtype,
 
 
 def device_constant(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A small constant host array as a ``dtype`` tensor on ``device``,
+    """A constant host array as a ``dtype`` tensor on ``device``,
     uploaded once per (values, dtype, device) and handed out again after
     that: a device program that needs a table (camera intrinsics, level
     scales, a pattern) does not pay an upload, and the stall that an upload
